@@ -1,0 +1,71 @@
+"""Convert the JAX package's flax weights into the port's state dicts.
+
+The inverse of ``maxstyle_tpu/utils/torch_import.py``. The input is one
+module's ``TrainState.params`` subtree and its ``batch_stats`` subtree as
+nested dicts of numpy arrays (NHWC/HWIO layouts); the output is the state
+dict of the port's module of the same name. The port names its modules
+after the flax ones, so the mapping goes by path:
+
+  conv kernel           (kh,kw,I,O)       -> weight (O,I,kh,kw)
+  transposed-conv kern. (kh,kw,I,O)       -> weight (I,O,kh,kw), spatially
+                                             flipped (flax's ConvTranspose
+                                             correlates with the kernel that
+                                             torch's flips)
+  BatchNorm             scale/bias + mean/var -> weight/bias +
+                                             running_mean/running_var
+  ``BatchNorm_0`` (the flax Norm2d child) is dropped from the path and
+  ``ConvTranspose_0`` becomes the port's ``conv``.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Iterator, Mapping, Tuple
+
+import numpy as np
+import torch
+
+_RENAME = {"BatchNorm_0": None, "ConvTranspose_0": "conv"}
+_LEAF = {"bias": "bias", "scale": "weight", "mean": "running_mean", "var": "running_var"}
+
+
+def _walk(tree: Mapping, path: Tuple[str, ...] = ()) -> Iterator[Tuple[Tuple[str, ...], np.ndarray]]:
+    for key, value in tree.items():
+        if isinstance(value, Mapping):
+            yield from _walk(value, path + (str(key),))
+        else:
+            yield path + (str(key),), np.asarray(value, dtype=np.float32)
+
+
+def _torch_name(path: Tuple[str, ...]) -> str:
+    segs = [_RENAME.get(s, s) for s in path[:-1]]
+    leaf = path[-1]
+    return ".".join([s for s in segs if s is not None] + [_LEAF.get(leaf, "weight")])
+
+
+def flax_to_state_dict(params: Mapping, batch_stats: Mapping | None = None
+                       ) -> Dict[str, torch.Tensor]:
+    """One module's flax params (and batch stats) -> the port's state dict."""
+    out: Dict[str, torch.Tensor] = {}
+    for path, a in _walk(params):
+        if path[-1] == "kernel":
+            if a.ndim != 4:
+                raise ValueError(f"{'/'.join(path)}: expected a 4-D conv kernel")
+            if "ConvTranspose_0" in path:
+                a = a[::-1, ::-1].transpose(2, 3, 0, 1)
+            else:
+                a = a.transpose(3, 2, 0, 1)
+        elif path[-1] not in ("bias", "scale"):
+            raise ValueError(f"unexpected flax parameter {'/'.join(path)}")
+        out[_torch_name(path)] = torch.from_numpy(np.ascontiguousarray(a))
+    for path, a in _walk(batch_stats or {}):
+        if path[-1] not in ("mean", "var"):
+            raise ValueError(f"unexpected flax batch stat {'/'.join(path)}")
+        out[_torch_name(path)] = torch.from_numpy(np.ascontiguousarray(a))
+    return out
+
+
+def convert_train_state(params: Mapping, batch_stats: Mapping) -> Dict[str, Dict[str, torch.Tensor]]:
+    """A JAX ``TrainState``'s params and batch stats (as numpy) ->
+    {module name: state dict} for every module."""
+    return {name: flax_to_state_dict(params[name], batch_stats.get(name, {}))
+            for name in params}

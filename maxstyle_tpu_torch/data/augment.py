@@ -1,0 +1,358 @@
+"""On-device batched data augmentation.
+
+Counterpart of ``maxstyle_tpu/data/augment.py``. The whole geometric chain
+(random affine, 45-degree group rotation, flips, random crop and a gated
+elastic field) composes into one inverse warp per sample; the elastic field
+is smoothed uniform noise, smoothed in Fourier space. Images are sampled
+bilinearly and labels by nearest neighbour.
+
+Random draws are split from the arithmetic: :func:`draw_aug` takes a
+``torch.Generator`` and draws every number for a batch at once;
+:func:`aug_coords` and :func:`post_warp_intensity` are deterministic in
+those draws, so tests can feed them the numbers JAX drew.
+
+Not ported yet (they raise ``NotImplementedError``): the bias-field and V1
+perturbation intensity branches, which need a bicubic resize matching
+``jax.image.resize``, and the cubic image warp (``image_interp="cubic"``).
+``ACDC_affine_elastic_intensity`` uses none of them.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Dict, Optional, Tuple
+
+import torch
+
+from maxstyle_tpu_torch.ops.warp_kernels import warp_bilinear_nearest
+
+Draws = Dict[str, torch.Tensor]
+
+
+@dataclasses.dataclass(frozen=True)
+class AugPolicy:
+    pad_hw: Tuple[int, int] = (224, 224)
+    crop_hw: Tuple[int, int] = (192, 192)
+    rotate_deg: float = 0.0
+    shift_frac: Tuple[float, float] = (0.0, 0.0)
+    shear_deg: float = 0.0
+    zoom_range: Tuple[float, float] = (1.0, 1.0)
+    flip_h: bool = False
+    flip_v: bool = False
+    flip_p: float = 0.0
+    rotate_groups: Tuple[float, ...] = ()   # e.g. multiples of 45°
+    elastic_prob: float = 0.0
+    elastic_alpha_range: Tuple[float, float] = (1.5, 2.0)   # x H
+    elastic_sigma_range: Tuple[float, float] = (0.075, 0.15)  # x H
+    intensity_prob: float = 0.0
+    contrast_range: Tuple[float, float] = (0.8, 1.2)
+    brightness_range: Tuple[float, float] = (-0.1, 0.1)
+    gamma_prob: float = 0.0
+    gamma_range: Tuple[float, float] = (0.8, 1.2)
+    bias_field_prob: float = 0.0
+    bias_field_magnitude: float = 0.2
+    noise_epsilon: float = 0.0
+    perturb_v1_prob: float = 0.0
+    perturb_v1_magnitude: float = 0.3
+    perturb_v1_noise_eps: float = 0.01
+    perturb_v1_control_points: Tuple[int, ...] = (2, 4, 8)
+    perturb_v1_max_sigma: float = 16.0
+    image_interp: str = "bilinear"
+
+    def __post_init__(self):
+        if self.image_interp not in ("bilinear", "cubic"):
+            raise ValueError(
+                f"image_interp must be 'bilinear' or 'cubic', got {self.image_interp!r}")
+
+
+def no_aug(pad_hw, crop_hw) -> AugPolicy:
+    return AugPolicy(pad_hw=tuple(pad_hw), crop_hw=tuple(crop_hw))
+
+
+def get_policy(name: str, pad_hw=(224, 224), crop_hw=(192, 192),
+               image_interp: str = "bilinear") -> AugPolicy:
+    """Aug-policy registry (the reference's transform.py:15-42 and
+    :113-215), the same table as the JAX package's."""
+    base = no_aug(pad_hw, crop_hw)
+    rep = dataclasses.replace
+    acdc_affine = rep(base, flip_h=True, flip_v=True, flip_p=0.2, rotate_deg=15.0,
+                      zoom_range=(0.8, 1.1), rotate_groups=tuple(45.0 * i for i in range(8)))
+    table = {
+        "no_aug": base,
+        "affine": rep(base, shift_frac=(0.1, 0.1), rotate_deg=15.0, zoom_range=(0.9, 1.1)),
+        "scale": rep(base, zoom_range=(0.8, 1.2)),
+        "elastic": rep(base, elastic_prob=0.5),
+        "gamma": rep(base, gamma_prob=0.5),
+        "gamma_elastic": rep(base, gamma_prob=0.5, elastic_prob=0.5),
+        "ACDC_affine": acdc_affine,
+        "ACDC_affine_intensity": rep(acdc_affine, intensity_prob=0.5),
+        "ACDC_affine_elastic": rep(acdc_affine, elastic_prob=0.5),
+        "ACDC_affine_elastic_intensity": rep(acdc_affine, intensity_prob=0.5,
+                                             elastic_prob=0.5),
+        "ACDC_affine_elastic_bias": rep(acdc_affine, elastic_prob=0.5, bias_field_prob=0.5),
+        "ACDC_affine_all": rep(acdc_affine, elastic_prob=0.5, intensity_prob=0.5,
+                               bias_field_prob=0.5),
+        "Prostate_affine_elastic_intensity": rep(
+            base, flip_h=True, flip_v=True, flip_p=0.5, shift_frac=(0.1, 0.1),
+            rotate_deg=15.0, zoom_range=(0.8, 1.2), intensity_prob=0.5, elastic_prob=0.5),
+        "UKBB_affine_elastic_intensity_aug": rep(acdc_affine, intensity_prob=0.5,
+                                                 elastic_prob=0.5),
+        "gamma_scale": rep(base, gamma_prob=0.5, zoom_range=(0.8, 1.2)),
+        "affine_elastic": rep(base, shift_frac=(0.1, 0.1), rotate_deg=15.0,
+                              zoom_range=(0.9, 1.1), elastic_prob=0.5),
+        "affine_gamma": rep(base, shift_frac=(0.1, 0.1), rotate_deg=15.0,
+                            zoom_range=(0.9, 1.1), gamma_prob=0.5),
+        "affine_gamma_elastic": rep(base, shift_frac=(0.1, 0.1), rotate_deg=15.0,
+                                    zoom_range=(0.9, 1.1), gamma_prob=0.5,
+                                    elastic_prob=0.5),
+        "elastic_scale": rep(base, elastic_prob=0.5, zoom_range=(0.8, 1.2)),
+        "elastic_v2": rep(base, elastic_prob=0.5),
+        "ACDC_affine_perturb": rep(acdc_affine, perturb_v1_prob=0.5),
+        "ACDC_affine_perturb_v2": rep(acdc_affine, bias_field_prob=0.5),
+        "Atrial_basic": rep(base, flip_h=True, flip_v=True, flip_p=0.5,
+                            shift_frac=(0.1, 0.1), rotate_deg=10.0, zoom_range=(0.7, 1.3)),
+        "Atrial_perturb": rep(base, flip_h=True, flip_v=True, flip_p=0.5,
+                              shift_frac=(0.1, 0.1), rotate_deg=10.0,
+                              zoom_range=(0.7, 1.3), perturb_v1_prob=0.5),
+    }
+    if name not in table:
+        raise KeyError(f"unknown aug policy {name}; have {sorted(table)}")
+    if image_interp not in ("bilinear", "cubic"):
+        raise ValueError(f"image_interp must be 'bilinear' or 'cubic', got {image_interp!r}")
+    pol = table[name]
+    if image_interp != "bilinear":
+        pol = dataclasses.replace(pol, image_interp=image_interp)
+    return pol
+
+
+def _check_ported(p: AugPolicy) -> None:
+    if p.bias_field_prob > 0 or p.perturb_v1_prob > 0:
+        raise NotImplementedError("the bias-field and V1 perturbation branches are "
+                                  "not ported yet")
+    if p.image_interp != "bilinear":
+        raise NotImplementedError("the cubic warp is not ported yet")
+
+
+# ---------------------------------------------------------------------------
+# draws
+# ---------------------------------------------------------------------------
+
+
+def draw_aug(generator: torch.Generator, policy: AugPolicy, n: int) -> Draws:
+    """Every random number of a batch of ``n`` augmentations, on the
+    generator's device: the affine's angles, zooms, shifts, group index and
+    flip uniforms; the crop offset; the elastic gate uniform, alpha, sigma
+    and noise field; the intensity gate uniform, contrast and brightness;
+    the gamma gate uniform and exponent."""
+    p = policy
+    dev = generator.device
+    H, W = p.pad_hw
+    h, w = p.crop_hw
+
+    def uni(lo, hi, shape=(n,)):
+        return lo + (hi - lo) * torch.rand(shape, generator=generator, device=dev)
+
+    def randint(hi):
+        return torch.randint(0, hi, (n,), generator=generator, device=dev)
+
+    return {
+        "theta_deg": uni(-p.rotate_deg, p.rotate_deg),
+        "shear_deg": uni(-p.shear_deg, p.shear_deg),
+        "zy": uni(*p.zoom_range), "zx": uni(*p.zoom_range),
+        "ty": uni(-p.shift_frac[0], p.shift_frac[0]),
+        "tx": uni(-p.shift_frac[1], p.shift_frac[1]),
+        "group": randint(max(len(p.rotate_groups), 1)),
+        "flip_h_u": uni(0.0, 1.0), "flip_v_u": uni(0.0, 1.0),
+        "oy": randint(H - h + 1), "ox": randint(W - w + 1),
+        "elastic_u": uni(0.0, 1.0),
+        "alpha": H * uni(*p.elastic_alpha_range),
+        "sigma": H * uni(*p.elastic_sigma_range),
+        "elastic_noise": uni(-1.0, 1.0, (n, 2, H, W)),
+        "intensity_u": uni(0.0, 1.0),
+        "contrast": uni(*p.contrast_range), "brightness": uni(*p.brightness_range),
+        "gamma_u": uni(0.0, 1.0), "gamma": uni(*p.gamma_range),
+    }
+
+
+# ---------------------------------------------------------------------------
+# geometry
+# ---------------------------------------------------------------------------
+
+
+def affine_matrix(d: Draws, p: AugPolicy) -> torch.Tensor:
+    """Inverse (target -> source) [n,2,3] matrices composing rotation, shear,
+    zoom, shift, flips and the 45° group rotation, in centred coordinates."""
+    deg2rad = math.pi / 180.0
+    theta = d["theta_deg"] * deg2rad
+    shear = d["shear_deg"] * deg2rad
+    zy, zx = d["zy"], d["zx"]
+    if p.rotate_groups:
+        groups = torch.tensor(p.rotate_groups, dtype=torch.float32, device=theta.device)
+        theta = theta + groups[d["group"]] * deg2rad
+    one = torch.ones_like(theta)
+    fh = torch.where(d["flip_h_u"] < p.flip_p, -one, one) if p.flip_h else one
+    fv = torch.where(d["flip_v_u"] < p.flip_p, -one, one) if p.flip_v else one
+    cos, sin = torch.cos(theta), torch.sin(theta)
+    f00 = zy * cos * fv
+    f01 = -zy * (sin + shear) * fh
+    f10 = zx * (sin + shear) * fv
+    f11 = zx * cos * fh
+    det = f00 * f11 - f01 * f10
+    i00, i01, i10, i11 = f11 / det, -f01 / det, -f10 / det, f00 / det
+    ty = d["ty"] * p.pad_hw[0]
+    tx = d["tx"] * p.pad_hw[1]
+    t0 = -(i00 * ty + i01 * tx)
+    t1 = -(i10 * ty + i11 * tx)
+    return torch.stack([torch.stack([i00, i01, t0], -1),
+                        torch.stack([i10, i11, t1], -1)], -2)
+
+
+def fft_gaussian_field(noise: torch.Tensor, sigma: torch.Tensor, alpha: torch.Tensor
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Gaussian-smoothed noise [n,2,H,W] times alpha [n] -> (dy, dx) [n,H,W];
+    the smoothing multiplies by the Gaussian's transfer function
+    exp(-2 pi^2 sigma^2 f^2) in Fourier space."""
+    n, _, h, w = noise.shape
+    fy = torch.fft.fftfreq(h, device=noise.device)[:, None]
+    fx = torch.fft.rfftfreq(w, device=noise.device)[None, :]
+    transfer = torch.exp(-2.0 * (math.pi ** 2) * (sigma ** 2)[:, None, None]
+                         * (fy ** 2 + fx ** 2))
+    sm = torch.fft.irfft2(torch.fft.rfft2(noise) * transfer[:, None], s=(h, w))
+    a = alpha[:, None, None]
+    return sm[:, 0] * a, sm[:, 1] * a
+
+
+def aug_coords(d: Draws, policy: AugPolicy) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Source coordinates [n,h,w] of the composed inverse warp."""
+    p = policy
+    H, W = p.pad_hw
+    h, w = p.crop_hw
+    mat = affine_matrix(d, p)
+    n = mat.shape[0]
+    dev = mat.device
+    oy, ox = d["oy"], d["ox"]
+    ty = torch.arange(h, device=dev, dtype=torch.float32)[None, :, None] + oy[:, None, None]
+    tx = torch.arange(w, device=dev, dtype=torch.float32)[None, None, :] + ox[:, None, None]
+    cy, cx = (H - 1) / 2.0, (W - 1) / 2.0
+    ty_c, tx_c = ty - cy, tx - cx
+    m = mat[:, :, :, None, None]
+    sy = m[:, 0, 0] * ty_c + m[:, 0, 1] * tx_c + m[:, 0, 2] + cy
+    sx = m[:, 1, 0] * ty_c + m[:, 1, 1] * tx_c + m[:, 1, 2] + cx
+    if p.elastic_prob > 0:
+        gate = (d["elastic_u"] < p.elastic_prob).float()[:, None, None]
+        dy_full, dx_full = fft_gaussian_field(d["elastic_noise"], d["sigma"], d["alpha"])
+        rows = (oy[:, None] + torch.arange(h, device=dev))[:, :, None]
+        cols = (ox[:, None] + torch.arange(w, device=dev))[:, None, :]
+        idx = torch.arange(n, device=dev)[:, None, None]
+        sy = sy + dy_full[idx, rows, cols] * gate
+        sx = sx + dx_full[idx, rows, cols] * gate
+    return sy, sx
+
+
+def sample_bilinear(img: torch.Tensor, ys: torch.Tensor, xs: torch.Tensor) -> torch.Tensor:
+    """The gather path: img [n,H,W], coords [n,h,w] -> [n,h,w], zero fill
+    outside [0, H-1] x [0, W-1]."""
+    n, h, w = img.shape
+    y0 = torch.floor(ys)
+    x0 = torch.floor(xs)
+    wy = ys - y0
+    wx = xs - x0
+    y0i = y0.long().clamp(0, h - 1)
+    x0i = x0.long().clamp(0, w - 1)
+    y1i = (y0i + 1).clamp(0, h - 1)
+    x1i = (x0i + 1).clamp(0, w - 1)
+    flat = img.reshape(n, h * w)
+
+    def at(yi, xi):
+        return torch.gather(flat, 1, (yi * w + xi).reshape(n, -1)).reshape(yi.shape)
+
+    out = (at(y0i, x0i) * (1 - wy) * (1 - wx) + at(y0i, x1i) * (1 - wy) * wx
+           + at(y1i, x0i) * wy * (1 - wx) + at(y1i, x1i) * wy * wx)
+    inside = (ys >= 0) & (ys <= h - 1) & (xs >= 0) & (xs <= w - 1)
+    return torch.where(inside, out, torch.zeros_like(out))
+
+
+def sample_nearest(img: torch.Tensor, ys: torch.Tensor, xs: torch.Tensor) -> torch.Tensor:
+    """The gather path's nearest sample; ``round`` rounds half to even."""
+    n, h, w = img.shape
+    yi = torch.round(ys).long().clamp(0, h - 1)
+    xi = torch.round(xs).long().clamp(0, w - 1)
+    out = torch.gather(img.reshape(n, h * w), 1, (yi * w + xi).reshape(n, -1)).reshape(yi.shape)
+    inside = (ys >= -0.5) & (ys <= h - 0.5) & (xs >= -0.5) & (xs <= w - 0.5)
+    return torch.where(inside, out, torch.zeros_like(out))
+
+
+def percentile_minmax(img: torch.Tensor, eps: float = 1e-20) -> torch.Tensor:
+    """Per-sample min-max of [n,h,w] to [0, 1] (the (0, 100) percentiles)."""
+    mn = img.amin(dim=(1, 2), keepdim=True)
+    mx = img.amax(dim=(1, 2), keepdim=True)
+    return torch.clamp((img - mn) / (mx - mn + eps), 0.0, 1.0)
+
+
+def post_warp_intensity(d: Draws, img: torch.Tensor, policy: AugPolicy) -> torch.Tensor:
+    """Brightness/contrast and gamma, then the final per-slice min-max."""
+    p = policy
+    _check_ported(p)
+    if p.intensity_prob > 0:
+        do_int = (d["intensity_u"] < p.intensity_prob)[:, None, None]
+        c = d["contrast"][:, None, None]
+        b = d["brightness"][:, None, None]
+        img = torch.where(do_int, c * img + b, img)
+    if p.gamma_prob > 0:
+        do_gamma = (d["gamma_u"] < p.gamma_prob)[:, None, None]
+        img = torch.where(do_gamma, percentile_minmax(img) ** d["gamma"][:, None, None], img)
+    return percentile_minmax(img)
+
+
+# ---------------------------------------------------------------------------
+# batches
+# ---------------------------------------------------------------------------
+
+
+def center_crop_norm(images: torch.Tensor, labels: Optional[torch.Tensor],
+                     crop_hw: Tuple[int, int], normalize: bool = True):
+    """[n,H,W] -> center crop [n,h,w], min-max normalized; labels int32."""
+    H, W = images.shape[-2:]
+    h, w = crop_hw
+    oy, ox = (H - h) // 2, (W - w) // 2
+    img = images[:, oy:oy + h, ox:ox + w].float()
+    if normalize:
+        img = percentile_minmax(img)
+    lab = None
+    if labels is not None:
+        lab = labels[:, oy:oy + h, ox:ox + w].to(torch.int32)
+    return img, lab
+
+
+def augment_batch_inner(generator: torch.Generator, images: torch.Tensor,
+                        labels: torch.Tensor, policy: AugPolicy,
+                        warp_backend: str = "kernel", draws: Optional[Draws] = None):
+    """[n,H,W] padded slices -> ([n,h,w,1] float32, [n,h,w] int32).
+
+    warp_backend: "kernel" (``ops/warp_kernels.py``: the CUDA kernel on the
+    GPU, its plain version on the CPU; labels round half up) or "gather"
+    (:func:`sample_bilinear` / :func:`sample_nearest`; labels round half to
+    even). ``draws`` pins the random numbers (see :func:`draw_aug`)."""
+    _check_ported(policy)
+    images = images.float().contiguous()
+    if draws is None:
+        draws = draw_aug(generator, policy, images.shape[0])
+    sy, sx = aug_coords(draws, policy)
+    if warp_backend == "kernel":
+        img, lab = warp_bilinear_nearest(images, labels.to(torch.int32).contiguous(),
+                                         sy.contiguous(), sx.contiguous())
+    elif warp_backend == "gather":
+        img = sample_bilinear(images, sy, sx)
+        lab = sample_nearest(labels.float(), sy, sx).to(torch.int32)
+    else:
+        raise ValueError(warp_backend)
+    img = post_warp_intensity(draws, img, policy)
+    return img[..., None], lab
+
+
+def norm_batch(images: torch.Tensor, labels: torch.Tensor, crop_hw: Tuple[int, int],
+               normalize: bool = True):
+    """[n,H,W] -> center-cropped, normalized ([n,h,w,1], [n,h,w])."""
+    img, lab = center_crop_norm(images, labels, crop_hw, normalize)
+    return img[..., None], lab

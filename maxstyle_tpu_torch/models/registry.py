@@ -1,0 +1,124 @@
+"""network_type string grammar -> module bundle.
+
+Counterpart of ``maxstyle_tpu/models/registry.py``. The whole grammar of the
+reference solver's ``get_network``
+(advanced_triplet_recon_segmentation_model.py:125-266) is parsed:
+
+  FCN_{16|64}[_standard][_no_STN][_no_im_recon][_w_image|_w_recon_image|
+      _w_dual_image][_w_o_filter][_share_code][_NN_decoder]
+      [_z_score|_identity]
+  DS_FCN_16_standard                      (dual-domain BN)
+  Unet… / UnetTransformer…
+
+``16`` -> feature_reduce 4, ``64`` -> feature_reduce 1. :func:`build_modules`
+builds the FCN family without STN; STN, DS_FCN, Unet and UNETR bundles are
+not ported yet and raise ``NotImplementedError``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+from torch import nn
+
+from maxstyle_tpu_torch.models.encoder_decoder import Decoder, DualBranchEncoder
+
+
+@dataclasses.dataclass(frozen=True)
+class NetworkSpec:
+    """Parsed network_type with everything the solver needs."""
+
+    network_type: str
+    feature_reduce: int
+    has_stn: bool
+    has_image_recon: bool
+    share_code: bool
+    no_filter: bool
+    num_domains: int
+    image_decoder_up: str
+    image_decoder_last_act: Optional[str]
+    shape_input_mode: Optional[str]  # None | 'seg_only' | 'w_image' | 'w_recon_image' | 'w_dual_image'
+    is_unet: bool
+    unet_code_filter: bool = False
+    is_transformer: bool = False
+
+    @property
+    def latent_ch(self) -> int:
+        return 512 // self.feature_reduce
+
+
+def parse_network_type(network_type: str, intensity_norm_type: str = "min_max") -> NetworkSpec:
+    nt = network_type
+    if "16" in nt:
+        reduce = 4
+    elif "64" in nt:
+        reduce = 1
+    else:
+        raise ValueError(f"network_type must contain 16 or 64: {nt}")
+
+    if intensity_norm_type == "min_max":
+        last_act: Optional[str] = "sigmoid"
+    elif intensity_norm_type == "z_score":
+        last_act = "instance_norm"
+    else:
+        raise NotImplementedError(intensity_norm_type)
+    if "z_score" in nt:
+        last_act = "instance_norm"
+    elif "identity" in nt:
+        last_act = None
+
+    has_stn = "no_STN" not in nt
+    shape_mode: Optional[str] = None
+    if has_stn:
+        if "w_dual_image" in nt:
+            shape_mode = "w_dual_image"
+        elif "w_recon_image" in nt:
+            shape_mode = "w_recon_image"
+        elif "w_image" in nt:
+            shape_mode = "w_image"
+        else:
+            shape_mode = "seg_only"
+
+    return NetworkSpec(
+        network_type=nt,
+        feature_reduce=reduce,
+        has_stn=has_stn,
+        has_image_recon="no_im_recon" not in nt,
+        share_code="share_code" in nt,
+        no_filter="w_o_filter" in nt,
+        num_domains=2 if nt.startswith("DS_") else 1,
+        image_decoder_up="NN" if "NN_decoder" in nt else "Conv2",
+        image_decoder_last_act=last_act,
+        shape_input_mode=shape_mode,
+        is_unet=nt.startswith("Unet"),
+        unet_code_filter="enable_code_filter" in nt,
+        is_transformer="UnetTransformer" in nt,
+    )
+
+
+def build_modules(spec: NetworkSpec, image_ch: int = 1, num_classes: int = 4,
+                  encoder_dropout: Optional[float] = None,
+                  decoder_dropout: Optional[float] = None) -> nn.ModuleDict:
+    """The module bundle {image_encoder, segmentation_decoder,
+    [image_decoder]} of an FCN spec."""
+    if spec.is_unet:
+        raise NotImplementedError("Unet/UNETR bundles are not ported yet")
+    if spec.has_stn:
+        raise NotImplementedError("STN (shape encoder/decoder) is not ported yet")
+    if spec.num_domains > 1:
+        raise NotImplementedError("DS_FCN (domain-specific BN) is not ported yet")
+    r = spec.feature_reduce
+    latent = 512 // r
+    modules = nn.ModuleDict()
+    modules["image_encoder"] = DualBranchEncoder(
+        image_ch, z_level_1_ch=latent, z_level_2_ch=latent, feature_reduce=r,
+        norm="batch", dropout=encoder_dropout)
+    modules["segmentation_decoder"] = Decoder(
+        latent, out_ch=num_classes, feature_reduce=r, up_type="NN", norm="batch",
+        dropout=decoder_dropout, last_act=None)
+    if spec.has_image_recon:
+        modules["image_decoder"] = Decoder(
+            latent, out_ch=image_ch, feature_reduce=r, up_type=spec.image_decoder_up,
+            norm="batch", dropout=decoder_dropout, last_act=spec.image_decoder_last_act)
+    return modules

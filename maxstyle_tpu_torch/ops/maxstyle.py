@@ -1,0 +1,187 @@
+"""MaxStyle: adversarial style composition op (plain PyTorch, NCHW).
+
+Counterpart of ``maxstyle_tpu/ops/maxstyle.py``. The op is a function of an
+explicit parameter/state pair rather than a stateful module:
+
+* :class:`MaxStyleParams` — the learnable style tensors the inner
+  adversarial loop optimizes: ``lmda`` [B,1,1,1], ``gamma_noise`` and
+  ``beta_noise`` [B,C,1,1].
+* :class:`MaxStyleState` — per-batch constants: the non-identity batch
+  permutation, the Bernoulli gate, and the stat spreads ``gamma_std`` /
+  ``beta_std`` ([1,C,1,1], or [B,C,1,1] with ``style_group_size``), NaN
+  until the first application caches them.
+
+Instance statistics and spreads are detached and ``lmda`` is clamped to
+[0, 1], so gradients flow only through the affine path, ``lmda`` (inside the
+clamp) and the two noise tensors. This module is the autograd reference that
+the fused kernels in ``ops/maxstyle_kernels.py`` are held against.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, Tuple
+
+import torch
+
+from maxstyle_tpu_torch import prng
+from maxstyle_tpu_torch.config import MaxStyleConfig
+
+
+@dataclasses.dataclass
+class MaxStyleParams:
+    lmda: torch.Tensor         # [B,1,1,1]
+    gamma_noise: torch.Tensor  # [B,C,1,1]
+    beta_noise: torch.Tensor   # [B,C,1,1]
+
+    def tensors(self) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        return self.lmda, self.gamma_noise, self.beta_noise
+
+
+@dataclasses.dataclass
+class MaxStyleState:
+    perm: torch.Tensor       # [B] int64, never the identity
+    gate: torch.Tensor       # [] float32: 1.0 apply, 0.0 no-op
+    gamma_std: torch.Tensor  # [1,C,1,1] or [B,C,1,1]; NaN until cached
+    beta_std: torch.Tensor
+
+
+def _group_size(cfg: MaxStyleConfig, batch_size: int) -> int:
+    """The style group: the whole batch unless a smaller divisor is set."""
+    g = cfg.style_group_size
+    if g is None or g >= batch_size:
+        return batch_size
+    if batch_size % g:
+        raise ValueError(
+            f"style_group_size={g} must divide the style batch "
+            f"({batch_size}) — pad or change the batch")
+    return g
+
+
+def draw_maxstyle(generator: torch.Generator, batch_size: int, num_features: int,
+                  cfg: MaxStyleConfig) -> Dict[str, torch.Tensor]:
+    """The random part of :func:`init_maxstyle`: raw permutations (one per
+    style group), the gate's uniform, lmda and the two noise tensors."""
+    dev = generator.device
+    g = _group_size(cfg, batch_size)
+    perms = torch.stack([torch.randperm(g, generator=generator, device=dev)
+                         for _ in range(batch_size // g)])
+    gate_u = torch.rand((), generator=generator, device=dev)
+    lmda_shape = (batch_size, 1, 1, 1)
+    if cfg.always_use_beta:
+        alpha = torch.full((2,) + lmda_shape, cfg.alpha, device=dev)
+        gam = torch._standard_gamma(alpha, generator=generator)
+        total = gam[0] + gam[1]
+        # both gammas may underflow to 0 at small alpha: fall back to the
+        # Beta distribution's limit, a fair coin between 0 and 1
+        lmda = torch.where(total > 0, gam[0] / total.clamp_min(1e-38),
+                           (gam[0] >= gam[1]).float())
+    else:
+        lmda = torch.rand(lmda_shape, generator=generator, device=dev)
+    noise_shape = (batch_size, num_features, 1, 1)
+    gn = torch.randn(noise_shape, generator=generator, device=dev)
+    bn = torch.randn(noise_shape, generator=generator, device=dev)
+    return {"perms": perms, "gate_u": gate_u, "lmda": lmda,
+            "gamma_noise": gn, "beta_noise": bn}
+
+
+def maxstyle_from_draws(draws: Dict[str, torch.Tensor], cfg: MaxStyleConfig
+                        ) -> Tuple[MaxStyleParams, MaxStyleState]:
+    """The deterministic part of :func:`init_maxstyle` (maxstyle.py:54-94 of
+    the JAX package): never-identity permutations laid out block-diagonally
+    over the style groups, the gate, and the learnable/zero switches."""
+    perms = torch.as_tensor(draws["perms"])
+    n_groups, g = perms.shape
+    b = n_groups * g
+    dev = perms.device
+    perms = torch.stack([prng.non_identity_permutation(p) for p in perms])
+    perm = (perms + torch.arange(n_groups, device=dev)[:, None] * g).reshape(b)
+    gate = (draws["gate_u"] < cfg.p).float()
+    lmda = draws["lmda"] if cfg.mix_style else torch.zeros_like(draws["lmda"])
+    if cfg.noise_learnable and not cfg.no_noise:
+        gn, bn = draws["gamma_noise"], draws["beta_noise"]
+    else:
+        gn = torch.zeros_like(draws["gamma_noise"])
+        bn = torch.zeros_like(draws["beta_noise"])
+    c = gn.shape[1]
+    nan_c = torch.full((1 if g == b else b, c, 1, 1), float("nan"), device=dev)
+    return (MaxStyleParams(lmda=lmda, gamma_noise=gn, beta_noise=bn),
+            MaxStyleState(perm=perm, gate=gate, gamma_std=nan_c,
+                          beta_std=nan_c.clone()))
+
+
+def init_maxstyle(generator: torch.Generator, batch_size: int, num_features: int,
+                  cfg: MaxStyleConfig) -> Tuple[MaxStyleParams, MaxStyleState]:
+    """Fresh per-batch style parameters and state, on the generator's device."""
+    return maxstyle_from_draws(
+        draw_maxstyle(generator, batch_size, num_features, cfg), cfg)
+
+
+def learnable_mask(cfg: MaxStyleConfig) -> Tuple[float, float, float]:
+    """0/1 factors for (lmda, gamma_noise, beta_noise): which tensors the
+    inner optimizer may update."""
+    mix = 1.0 if (cfg.mix_style and cfg.mix_learnable) else 0.0
+    noi = 1.0 if (cfg.noise_learnable and not cfg.no_noise) else 0.0
+    return mix, noi, noi
+
+
+def instance_stats(x: torch.Tensor, eps: float) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Detached per-(sample, channel) spatial mean and std, with the unbiased
+    variance of torch's ``x.var``."""
+    x = x.detach()
+    mu = x.mean(dim=(2, 3), keepdim=True)
+    var = x.var(dim=(2, 3), keepdim=True, unbiased=x.shape[2] * x.shape[3] > 1)
+    return mu, torch.sqrt(var + eps)
+
+
+def _group_std(v: torch.Tensor, g: int) -> torch.Tensor:
+    """Unbiased std over the batch axis within each style group:
+    [B,C,1,1] -> [1,C,1,1] when g == B, else [B,C,1,1] with each row
+    carrying its group's spread."""
+    b, c = v.shape[:2]
+    v = v.detach()
+    if g == b:
+        return v.std(dim=0, keepdim=True, unbiased=b > 1)
+    vg = v.reshape(b // g, g, c)
+    std = vg.std(dim=1, keepdim=True, unbiased=g > 1).expand(b // g, g, c)
+    return std.reshape(b, c, 1, 1)
+
+
+def cached_spreads(state: MaxStyleState, sig: torch.Tensor, mu: torch.Tensor,
+                   g: int) -> MaxStyleState:
+    """Fill the NaN-sentinel spreads from this batch's stats; keep cached ones."""
+    gamma_std = torch.where(torch.isnan(state.gamma_std), _group_std(sig, g),
+                            state.gamma_std)
+    beta_std = torch.where(torch.isnan(state.beta_std), _group_std(mu, g),
+                           state.beta_std)
+    return dataclasses.replace(state, gamma_std=gamma_std, beta_std=beta_std)
+
+
+def is_noop(x: torch.Tensor, cfg: MaxStyleConfig) -> bool:
+    b, _, h, w = x.shape
+    return b <= 1 or h * w == 1 or (not cfg.mix_style and cfg.no_noise)
+
+
+def apply_maxstyle(x: torch.Tensor, params: MaxStyleParams, state: MaxStyleState,
+                   cfg: MaxStyleConfig) -> Tuple[torch.Tensor, MaxStyleState]:
+    """Forward pass of the op on x [B,C,H,W]; returns (out, state') where
+    state' carries the spreads cached on first application."""
+    if is_noop(x, cfg):
+        return x, state
+    mu, sig = instance_stats(x, cfg.eps)
+    x_normed = (x - mu) / sig
+    new_state = cached_spreads(state, sig, mu, _group_size(cfg, x.shape[0]))
+
+    if cfg.mix_style:
+        lm = params.lmda.clamp(0.0, 1.0)
+        sig_mix = sig * (1.0 - lm) + sig[state.perm] * lm
+        mu_mix = mu * (1.0 - lm) + mu[state.perm] * lm
+    else:
+        sig_mix, mu_mix = sig, mu
+
+    if cfg.no_noise:
+        x_aug = sig_mix * x_normed + mu_mix
+    else:
+        x_aug = ((sig_mix + params.gamma_noise * new_state.gamma_std) * x_normed
+                 + (mu_mix + params.beta_noise * new_state.beta_std))
+    return state.gate * x_aug + (1.0 - state.gate) * x, new_state

@@ -1,0 +1,85 @@
+"""Where the time of the headline training step goes, on the GPU.
+
+    python3 -m maxstyle_tpu_torch.profile_slice [--k-inner 4] [--top 25]
+
+Warms up one ``make_multi_step`` call of the flagship workload (effective
+batch 20 at 192^2, MaxStyle n_iter=5), then traces one more call with
+``torch.profiler`` and prints: the wall time of the traced call, the summed
+device time of all kernels and the device's busy share (device time over
+wall time), the device time per step of the port's four CUDA kernels, and
+the kernels with the most device time.
+"""
+
+from __future__ import annotations
+
+import argparse
+import time
+
+import torch
+from torch.profiler import ProfilerActivity, profile
+
+from maxstyle_tpu_torch.data import augment as A
+from maxstyle_tpu_torch.flagship import flagship_solver, make_raw_batches
+from maxstyle_tpu_torch.train_step import make_multi_step
+
+# symbol fragments of the port's kernels in the profiler's kernel names
+PORT_KERNELS = {name: f"{name}_kernel" for name in
+                ("maxstyle_stats", "maxstyle_apply", "maxstyle_bwd", "warp_bilinear_nearest")}
+
+
+def _device_us(evt) -> float:
+    for attr in ("self_device_time_total", "self_cuda_time_total"):
+        if hasattr(evt, attr):
+            return float(getattr(evt, attr))
+    return 0.0
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--k-inner", type=int, default=4)
+    ap.add_argument("--top", type=int, default=25)
+    args = ap.parse_args()
+
+    solver = flagship_solver(hw=192, batch=20, device="cuda")
+    state = solver.init_state(0)
+    policy = A.get_policy("ACDC_affine_elastic_intensity", (224, 224), (192, 192))
+    raw = make_raw_batches(args.k_inner, 10, 224, 1, solver.device)
+    multi = make_multi_step(solver, policy, keep_orig=True, n_inner=args.k_inner)
+    gen = torch.Generator(device=solver.device).manual_seed(10)
+    state, _ = multi(state, raw, gen)
+    torch.cuda.synchronize()
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        state, metrics = multi(state, raw, gen)
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    float(metrics["loss/total"])
+
+    # device-side events only: an operator's row repeats its kernels' time
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA and _device_us(e) > 0]
+    device_ms = sum(_device_us(e) for e in kernels) / 1e3
+    steps = args.k_inner
+    print(f"profile: {torch.cuda.get_device_name(0)}; one call of {steps} steps")
+    if device_ms == 0.0:
+        print("profile: the profiler reported no device time: not measured")
+        return
+    print(f"profile: wall {wall_ms:.3f} ms ({wall_ms / steps:.3f} ms/step) under the "
+          f"profiler; kernel device time {device_ms:.3f} ms "
+          f"({device_ms / steps:.3f} ms/step); device busy share "
+          f"{device_ms / wall_ms:.4f}")
+    for name, frag in PORT_KERNELS.items():
+        evts = [e for e in kernels if frag in e.key]
+        us = sum(_device_us(e) for e in evts)
+        calls = sum(e.count for e in evts)
+        print(f"profile: port kernel {name}: {calls / steps:.1f} launches/step, "
+              f"{us / 1e3 / steps:.4f} ms/step device")
+    kernels.sort(key=_device_us, reverse=True)
+    for e in kernels[:args.top]:
+        print(f"profile: {_device_us(e) / 1e3 / steps:9.4f} ms/step "
+              f"{e.count / steps:7.1f} calls/step  {e.key[:110]}")
+
+
+if __name__ == "__main__":
+    main()

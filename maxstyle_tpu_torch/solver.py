@@ -1,0 +1,310 @@
+"""Triplet reconstruction/segmentation solver — the method layer.
+
+Counterpart of the main-path part of ``maxstyle_tpu/solver.py``. The JAX
+package threads (params, batch_stats) through pure functions; here the
+modules own their weights and BatchNorm buffers, and the methods take the
+module dict ``nets`` and a BatchNorm ``mode`` (see ``models/layers.py``):
+
+  "train"  — batch stats used, running stats updated in place;
+  "frozen" — batch stats used, nothing written;
+  "eval"   — running stats used.
+
+Tensors are NCHW inside the solver; the train step converts at its
+boundary. The MaxStyle op is the fused one of ``ops/maxstyle_kernels.py``
+(CUDA kernels on the GPU, their plain versions on the CPU); the plain
+autograd op of ``ops/maxstyle.py`` is its reference in the tests.
+SGD/StepLR, STN, latent-space masking and MixStyle replay are not ported
+yet.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, Optional
+
+import torch
+from torch import nn
+
+from maxstyle_tpu_torch import losses
+from maxstyle_tpu_torch.config import ExperimentConfig, MaxStyleConfig
+from maxstyle_tpu_torch.models.encoder_decoder import decoder_style_channels
+from maxstyle_tpu_torch.models.registry import NetworkSpec, build_modules, parse_network_type
+from maxstyle_tpu_torch.ops import maxstyle as ms
+from maxstyle_tpu_torch.ops.intensity import intensity_norm_fn
+from maxstyle_tpu_torch.ops.maxstyle_kernels import apply_maxstyle_kernels
+
+
+def resolve_device(device=None) -> torch.device:
+    """The device of an entry point: the GPU unless the caller names one.
+    Without a GPU the caller has to ask for the CPU explicitly."""
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError("no CUDA device is available; pass device='cpu' "
+                               "to run on the CPU")
+        return torch.device("cuda")
+    return torch.device(device)
+
+
+@dataclasses.dataclass
+class TrainState:
+    """The modules (weights and BatchNorm buffers), one optimizer per
+    module, and the step count. The train step updates it in place."""
+
+    modules: nn.ModuleDict
+    optimizers: Dict[str, torch.optim.Optimizer]
+    step: int = 0
+
+
+@dataclasses.dataclass
+class ForwardAux:
+    """Tensors of the standard pass that later branches reuse."""
+
+    z_i: torch.Tensor
+    z_s: torch.Tensor
+    recon_image: Optional[torch.Tensor]
+    y0: torch.Tensor
+
+
+def make_optimizer(optimizer_type: str, params, lr: float) -> torch.optim.Optimizer:
+    """Per-module optimizer with torch-default hyperparameters. AdamW's decay
+    reaches every parameter, biases and BatchNorm scales included, as
+    optax.adamw's does."""
+    if optimizer_type == "Adam":
+        return torch.optim.Adam(params, lr=lr, betas=(0.9, 0.999), eps=1e-8)
+    if optimizer_type == "AdamW":
+        return torch.optim.AdamW(params, lr=lr, betas=(0.9, 0.999), eps=1e-8,
+                                 weight_decay=0.01)
+    raise NotImplementedError(f"optimizer {optimizer_type!r} is not ported yet")
+
+
+def _inner_adam(params, grads, m, v, t: int, lr: float,
+                b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8):
+    """One step of optax.adam on lists of tensors, in place, in optax's
+    order: bias-corrected moments, eps outside the sqrt."""
+    for p, g, mi, vi in zip(params, grads, m, v):
+        mi.mul_(b1).add_((1.0 - b1) * g)
+        vi.mul_(b2).add_((1.0 - b2) * (g * g))
+        m_hat = mi / (1.0 - b1 ** t)
+        v_hat = vi / (1.0 - b2 ** t)
+        p.add_(-lr * (m_hat / (torch.sqrt(v_hat) + eps)))
+
+
+class TripletSegmentationSolver:
+    """Static configuration and the training procedures over ``nets``."""
+
+    def __init__(self, config: ExperimentConfig, image_ch: int = 1, device=None):
+        if config.learning.compute_dtype not in ("auto", "float32", "f32"):
+            raise NotImplementedError("only float32 compute is ported; bf16 is queued")
+        self.config = config
+        self.image_ch = image_ch
+        self.device = resolve_device(device)
+        self.num_classes = config.segmentation_model.num_classes
+        self.spec: NetworkSpec = parse_network_type(
+            config.segmentation_model.network_type, config.data.intensity_norm_type)
+        self.class_weights = config.learning.class_weights
+        self.rec_loss_type = config.learning.rec_loss_type
+
+    # ------------------------------------------------------------------
+    # state
+    # ------------------------------------------------------------------
+
+    def build_modules(self, seed: int = 0) -> nn.ModuleDict:
+        """Fresh modules, initialised from ``seed`` without touching the
+        global random state."""
+        L = self.config.learning
+        with torch.random.fork_rng(devices=[]):
+            torch.manual_seed(seed)
+            nets = build_modules(self.spec, image_ch=self.image_ch,
+                                 num_classes=self.num_classes,
+                                 encoder_dropout=L.encoder_dropout,
+                                 decoder_dropout=L.decoder_dropout)
+        return nets.to(self.device)
+
+    def init_state(self, seed: int = 0, state_dicts: Optional[Dict] = None) -> TrainState:
+        """A TrainState with modules from ``seed``, or loaded from
+        ``state_dicts`` ({module name: state dict}, e.g. from convert.py)."""
+        nets = self.build_modules(seed)
+        if state_dicts is not None:
+            for name, sd in state_dicts.items():
+                nets[name].load_state_dict(sd, strict=True)
+        L = self.config.learning
+        optimizers = {name: make_optimizer(L.optimizer_type, nets[name].parameters(), L.lr)
+                      for name in nets}
+        return TrainState(modules=nets, optimizers=optimizers)
+
+    # ------------------------------------------------------------------
+    # module application
+    # ------------------------------------------------------------------
+
+    def _route_codes(self, z, z_s):
+        """(z, filtered) -> (z_i, z_s) per the network_type routing."""
+        if self.spec.no_filter:
+            return z, z
+        z_i = z_s if self.spec.share_code else z
+        return z_i, z_s
+
+    def encode_image(self, nets, x, *, mode: str):
+        z = nets["image_encoder"].encode(x, mode)
+        return self.filter_code(nets, z, mode=mode)
+
+    def filter_code(self, nets, z, *, mode: str):
+        if self.spec.no_filter:
+            return z, z
+        z_s = nets["image_encoder"].filter_code(z, mode)
+        return self._route_codes(z, z_s)
+
+    def decode(self, nets, name: str, code, *, mode: str, style_fns=None, **extra):
+        return nets[name](code, mode, style_fns=style_fns, **extra)
+
+    # ------------------------------------------------------------------
+    # standard training (advanced_triplet…:731-786)
+    # ------------------------------------------------------------------
+
+    def standard_training(self, nets, clean_image, label, perturbed_image, *,
+                          mode: str = "train"):
+        zero = torch.zeros((), device=clean_image.device)
+        z_i, z_s = self.encode_image(nets, perturbed_image, mode=mode)
+        y0 = self.decode(nets, "segmentation_decoder", z_s, mode=mode)
+        seg_loss = losses.cross_entropy_2d(y0, label, weight=self.class_weights)
+        if self.spec.has_image_recon:
+            recon = self.decode(nets, "image_decoder", z_i, mode=mode)
+            image_recon_loss = losses.image_recon_loss(recon, clean_image, self.rec_loss_type)
+        else:
+            recon = None
+            image_recon_loss = zero
+        aux = ForwardAux(z_i=z_i, z_s=z_s, recon_image=recon, y0=y0)
+        # no STN: the two shape losses are zero
+        return (seg_loss, image_recon_loss, zero, zero), aux
+
+    # ------------------------------------------------------------------
+    # hard-example training (advanced_triplet…:843-889)
+    # ------------------------------------------------------------------
+
+    def hard_example_training(self, nets, perturbed_image, clean_image, label):
+        """Train on the stylized image with frozen BatchNorm."""
+        norm = intensity_norm_fn(self.config.data.intensity_norm_type)
+        perturbed_image = norm(perturbed_image).detach()
+        (seg_loss, recon_loss, _, shape_loss), _ = self.standard_training(
+            nets, clean_image, label, perturbed_image, mode="frozen")
+        return seg_loss, recon_loss, shape_loss, torch.zeros_like(seg_loss)
+
+    # ------------------------------------------------------------------
+    # MaxStyle generation — the inner adversarial loop
+    # (advanced_triplet…:458-571)
+    # ------------------------------------------------------------------
+
+    def generate_max_style_image(self, nets, image_code, *, reference_segmentation,
+                                 ms_cfg: MaxStyleConfig, generator: torch.Generator,
+                                 style_init=None, return_style: bool = False):
+        """Stylized reconstruction by adversarial optimisation of the style
+        tensors {lmda, gamma_noise, beta_noise} at the decoder hooks.
+
+        Model weights and BatchNorm buffers are constants here: every decode
+        is "frozen" and gradients are taken with ``torch.autograd.grad``
+        with respect to the style tensors only, so no ``.grad`` accumulates
+        on model parameters. The spreads are cached by the first decode and
+        then frozen. Inner Adam(lr) follows optax.adam, on gradients
+        multiplied by ``learnable_mask``. ``style_init`` = ({idx: params},
+        {idx: state}) pins the draws. Returns the detached stylized image
+        (and the final style params if ``return_style``)."""
+        code = image_code.detach()
+        indexes = tuple(ms_cfg.decoder_layers_indexes)
+        if not indexes:
+            with torch.no_grad():
+                recon = self.decode(nets, "image_decoder", code, mode="frozen")
+            return (recon, None) if return_style else recon
+
+        if style_init is not None:
+            style_params = {idx: style_init[0][idx] for idx in indexes}
+            style_state = {idx: style_init[1][idx] for idx in indexes}
+        else:
+            chans = decoder_style_channels(self.spec.feature_reduce, self.image_ch)
+            style_params, style_state = {}, {}
+            for idx in indexes:
+                style_params[idx], style_state[idx] = ms.init_maxstyle(
+                    generator, code.shape[0], chans[idx], ms_cfg)
+        mask = ms.learnable_mask(ms_cfg)
+
+        # the decoder prefix before the first hook sees no style op: compute
+        # it once, outside the loop
+        min_idx = min(indexes)
+        split = min_idx > 0
+        start = code
+        if split:
+            with torch.no_grad():
+                start = self.decode(nets, "image_decoder", code, mode="frozen",
+                                    stop_before_hook=min_idx)
+
+        def decode_with_styles(sp, st):
+            new_st = dict(st)
+
+            def make_hook(idx):
+                def hook(x):
+                    out, new_st[idx] = apply_maxstyle_kernels(x, sp[idx], st[idx], ms_cfg)
+                    return out
+                return hook
+
+            style_fns = {idx: make_hook(idx) for idx in indexes}
+            recon = self.decode(nets, "image_decoder", start, mode="frozen",
+                                style_fns=style_fns,
+                                start_at_hook=min_idx if split else None)
+            return recon, new_st
+
+        # the first decode caches the stat spreads
+        with torch.no_grad():
+            recon, style_state = decode_with_styles(style_params, style_state)
+
+        optimize = any(mask)
+        if ms_cfg.n_iter > 0 and optimize:
+            leaves = [t.detach().clone() for idx in indexes
+                      for t in style_params[idx].tensors()]
+            masks = mask * len(indexes)
+            m1 = [torch.zeros_like(t) for t in leaves]
+            m2 = [torch.zeros_like(t) for t in leaves]
+
+            def as_params(ts):
+                return {idx: ms.MaxStyleParams(*ts[3 * i:3 * i + 3])
+                        for i, idx in enumerate(indexes)}
+
+            for t in range(1, ms_cfg.n_iter + 1):
+                live = [x.detach().requires_grad_(True) for x in leaves]
+                with torch.enable_grad():
+                    recon_i, _ = decode_with_styles(as_params(live), style_state)
+                    _, z_s2 = self.encode_image(nets, recon_i, mode="frozen")
+                    pred = self.decode(nets, "segmentation_decoder", z_s2, mode="frozen")
+                    total = 0.0
+                    for l_w, ltype in zip(ms_cfg.loss_weights, ms_cfg.loss_types):
+                        if ltype != "seg":
+                            raise ValueError(f"maxstyle loss type {ltype}")
+                        total = total + l_w * -losses.basic_loss_fn(
+                            pred, reference_segmentation, loss_type="cross entropy",
+                            class_weights=self.class_weights)
+                    # lmda takes no part without mixing: its gradient is zero
+                    grads = torch.autograd.grad(total, live, allow_unused=True)
+                with torch.no_grad():
+                    grads = [torch.zeros_like(x) if g is None else g * k
+                             for g, k, x in zip(grads, masks, leaves)]
+                    _inner_adam(leaves, grads, m1, m2, t, ms_cfg.lr)
+            style_params = as_params(leaves)
+            with torch.no_grad():
+                recon, _ = decode_with_styles(style_params, style_state)
+        recon = recon.detach()
+        return (recon, style_params) if return_style else recon
+
+    # ------------------------------------------------------------------
+    # inference (advanced_triplet…:673-691)
+    # ------------------------------------------------------------------
+
+    @torch.no_grad()
+    def predict(self, nets, image, *, softmax: bool = False,
+                normalize_input: bool = True):
+        """Eval-mode forward of image [N,H,W,C] -> logits (or probabilities)
+        [N,H,W,num_classes]."""
+        x = image.permute(0, 3, 1, 2).float()
+        if normalize_input:
+            x = intensity_norm_fn(self.config.data.intensity_norm_type)(x)
+        _, z_s = self.encode_image(nets, x, mode="eval")
+        pred = self.decode(nets, "segmentation_decoder", z_s, mode="eval")
+        if softmax:
+            pred = torch.softmax(pred, dim=1)
+        return pred.permute(0, 2, 3, 1)

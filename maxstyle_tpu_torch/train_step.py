@@ -1,0 +1,188 @@
+"""Training-step composition.
+
+Counterpart of ``maxstyle_tpu/train_step.py``: one call runs one iteration
+of the reference training loop (train_adv_supervised_segmentation_triplet.py
+:158-541) — input noise, standard triplet training and, with ``max_style``,
+adversarial style generation and hard-example training — then one optimizer
+step per module. The other method branches (latent_DA, rand_conv, RSC,
+mix_style, DSU, adv_noise, adv_bias) are not ported yet and raise
+``NotImplementedError``.
+
+At the boundary the layouts are the JAX package's: ``batch["image"]`` is
+[N,H,W,1] float and ``batch["label"]`` [N,H,W] int; raw batches are [N,H,W]
+(one step) or [K,N,H,W] (K steps). The step updates the TrainState in place
+and returns it with the metrics, as float32 tensors on the state's device.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, Tuple
+
+import torch
+
+from maxstyle_tpu_torch.data import augment as A
+from maxstyle_tpu_torch.solver import TrainState, TripletSegmentationSolver
+
+LOSS_KEYS = (
+    "loss/standard/total", "loss/standard/seg", "loss/standard/image",
+    "loss/standard/shape", "loss/standard/gt_shape",
+    "loss/hard/total", "loss/hard/seg", "loss/hard/image", "loss/hard/shape",
+    "loss/hard/rand_conv", "loss/hard/RSC", "loss/hard/mix_style",
+    "loss/hard/DSU", "loss/hard/adv_noise", "loss/hard/adv_bias",
+)
+_UNPORTED_BRANCHES = ("latent_DA", "rand_conv", "RSC", "mix_style", "DSU",
+                      "adv_noise", "adv_bias")
+
+
+def add_input_noise(clean_image: torch.Tensor, noise: torch.Tensor,
+                    intensity_norm_type: str) -> torch.Tensor:
+    """Denoising-autoencoder input corruption (train_adv…:179-186) given the
+    N(0,1) draw ``noise``: +0.05*noise, then clamp to the clean batch's
+    global [min, max] (min_max) or re-instance-normalize (z_score)."""
+    noisy = clean_image + 0.05 * noise
+    if intensity_norm_type == "min_max":
+        return torch.clamp(noisy, clean_image.min(), clean_image.max())
+    if intensity_norm_type == "z_score":
+        mean = noisy.mean(dim=(2, 3), keepdim=True)
+        var = noisy.var(dim=(2, 3), keepdim=True, unbiased=False)
+        return (noisy - mean) / torch.sqrt(var + 1e-5)
+    raise ValueError(intensity_norm_type)
+
+
+def make_train_step(solver: TripletSegmentationSolver):
+    """The per-iteration update ``step(state, batch, generator,
+    overrides=None) -> (state, metrics)``.
+
+    ``overrides`` pins the step's random draws: {"image_n": the noisy input
+    [N,H,W,1], "style_init": ({idx: MaxStyleParams}, {idx: MaxStyleState})}."""
+    cfg = solver.config
+    L = cfg.learning
+    requested = sorted(name for name in _UNPORTED_BRANCHES if getattr(L, name))
+    if requested:
+        raise NotImplementedError(f"method branches not yet ported: {requested}")
+
+    def step(state: TrainState, batch: Dict[str, torch.Tensor],
+             generator: torch.Generator, overrides: Dict[str, Any] | None = None
+             ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
+        image = batch["image"]
+        if image.dim() != 4:
+            raise ValueError(f"batch['image'] must be [N,H,W,C], got {tuple(image.shape)}")
+        label = batch["label"]
+        if label.dim() != 3:
+            raise ValueError(f"batch['label'] must be [N,H,W], got {tuple(label.shape)}")
+        clean = image.permute(0, 3, 1, 2).float().contiguous()
+        label = label.long()
+        ov = overrides or {}
+        if "image_n" in ov:
+            image_n = ov["image_n"].permute(0, 3, 1, 2).float().contiguous()
+        else:
+            noise = torch.randn(clean.shape, generator=generator, device=clean.device)
+            image_n = add_input_noise(clean, noise, cfg.data.intensity_norm_type)
+        nets = state.modules
+        for opt in state.optimizers.values():
+            opt.zero_grad(set_to_none=True)
+
+        zero = torch.zeros((), device=clean.device)
+        m = {key: zero for key in LOSS_KEYS}
+        (seg_l, img_l, gt_l, shape_l), aux = solver.standard_training(
+            nets, clean, label, image_n, mode="train")
+        standard_loss = seg_l + img_l + shape_l + gt_l
+        m["loss/standard/total"] = standard_loss
+        m["loss/standard/seg"] = seg_l
+        m["loss/standard/image"] = img_l
+        m["loss/standard/shape"] = shape_l
+        m["loss/standard/gt_shape"] = gt_l
+        total = standard_loss
+
+        if L.max_style:
+            stylized = solver.generate_max_style_image(
+                nets, aux.z_i, reference_segmentation=label, ms_cfg=cfg.max_style,
+                generator=generator, style_init=ov.get("style_init"))
+            h_seg, h_rec, h_shape1, h_shape2 = solver.hard_example_training(
+                nets, stylized, clean, label)
+            ms_loss = h_rec + h_seg + h_shape1 + h_shape2
+            m["loss/hard/total"] = ms_loss
+            m["loss/hard/seg"] = h_seg
+            m["loss/hard/image"] = h_rec
+            m["loss/hard/shape"] = h_shape1 + h_shape2
+            total = total + ms_loss
+
+        total.backward()
+        for name, opt in state.optimizers.items():
+            # every weight steps, as under optax, where each leaf has a gradient
+            for p in nets[name].parameters():
+                if p.grad is None:
+                    p.grad = torch.zeros_like(p)
+            opt.step()
+        m["loss/total"] = total
+        state.step += 1
+        return state, {k: v.detach() for k, v in m.items()}
+
+    return step
+
+
+def interleave_style_groups(aug: torch.Tensor, orig: torch.Tensor,
+                            group_size: int) -> torch.Tensor:
+    """Reorder the (aug, orig) pair into consecutive style groups of
+    ``group_size``, each [G/2 aug | G/2 orig]."""
+    half, hg = aug.shape[0], group_size // 2
+    n = half // hg
+    a = aug.reshape((n, hg) + tuple(aug.shape[1:]))
+    o = orig.reshape((n, hg) + tuple(orig.shape[1:]))
+    return torch.cat([a, o], dim=1).reshape((2 * half,) + tuple(aug.shape[1:]))
+
+
+def make_fused_train_step(solver: TripletSegmentationSolver, aug_policy: A.AugPolicy,
+                          keep_orig: bool):
+    """Augmentation and training in one call: ``fused(state, raw,
+    generator)`` takes RAW padded slices {"image": [N,H,W], "label":
+    [N,H,W]}, augments them on their device, pairs them with the
+    center-cropped originals when ``keep_orig``, and trains one step."""
+    base_step = make_train_step(solver)
+    crop_hw = aug_policy.crop_hw
+
+    def fused(state: TrainState, raw: Dict[str, torch.Tensor], generator: torch.Generator):
+        img, lab = A.augment_batch_inner(generator, raw["image"], raw["label"], aug_policy)
+        batch = {"image": img, "label": lab}
+        if keep_orig:
+            oi, ol = A.norm_batch(raw["image"], raw["label"], crop_hw)
+            half = img.shape[0]
+            g = (solver.config.max_style.style_group_size
+                 if solver.config.learning.max_style else None)
+            if g and 2 * half > g:
+                if g % 2 or half % (g // 2):
+                    raise ValueError(
+                        f"style_group_size={g} with keep_orig pairing needs an even "
+                        f"group that divides both batch halves (half={half}); adjust "
+                        f"batch_size or style_group_size")
+                batch = {"image": interleave_style_groups(img, oi, g),
+                         "label": interleave_style_groups(lab, ol, g)}
+            else:
+                batch = {"image": torch.cat([img, oi], 0),
+                         "label": torch.cat([lab, ol], 0)}
+        return base_step(state, batch, generator)
+
+    return fused
+
+
+def make_multi_step(solver: TripletSegmentationSolver, aug_policy: A.AugPolicy,
+                    keep_orig: bool, n_inner: int = 4):
+    """``multi(state, raw_stack, generator)`` runs ``n_inner`` fused steps on
+    raw batches stacked on a leading axis ({"image": [K,N,H,W], "label":
+    [K,N,H,W]}) and reports the mean of each metric over the K steps."""
+    fused = make_fused_train_step(solver, aug_policy, keep_orig)
+
+    def multi(state: TrainState, raw_stack: Dict[str, torch.Tensor],
+              generator: torch.Generator):
+        if raw_stack["image"].shape[0] != n_inner:
+            raise ValueError(f"expected {n_inner} stacked raw batches, got "
+                             f"{raw_stack['image'].shape[0]}")
+        history = []
+        for k in range(n_inner):
+            raw = {"image": raw_stack["image"][k], "label": raw_stack["label"][k]}
+            state, metrics = fused(state, raw, generator)
+            history.append(metrics)
+        return state, {key: torch.stack([h[key] for h in history]).mean()
+                       for key in history[0]}
+
+    return multi

@@ -1,0 +1,61 @@
+"""Boundaries of the port: it never imports JAX or the JAX package, and its
+entry points never fall back to the CPU on their own."""
+
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+from maxstyle_tpu_torch.config import ExperimentConfig
+from maxstyle_tpu_torch.flagship import flagship_solver
+from maxstyle_tpu_torch.ops import maxstyle_kernels as mk
+from maxstyle_tpu_torch.solver import TripletSegmentationSolver
+
+ROOT = Path(__file__).resolve().parents[1]
+PACKAGE = ROOT / "maxstyle_tpu_torch"
+FORBIDDEN = re.compile(r"import jax|from jax|maxstyle_tpu(\.|\s|$)", re.MULTILINE)
+
+
+def test_import_leaves_jax_and_the_jax_package_out():
+    code = ("import sys, importlib, pkgutil, maxstyle_tpu_torch\n"
+            "for m in pkgutil.walk_packages(maxstyle_tpu_torch.__path__, 'maxstyle_tpu_torch.'):\n"
+            "    importlib.import_module(m.name)\n"
+            "bad = sorted(n for n in sys.modules if n == 'jax' or n.startswith('jax.')\n"
+            "             or n == 'maxstyle_tpu' or n.startswith('maxstyle_tpu.'))\n"
+            "print(bad)\n"
+            "assert not bad, bad\n")
+    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True,
+                       timeout=300)
+    assert r.returncode == 0, r.stdout + r.stderr
+
+
+def test_no_package_file_names_jax():
+    files = sorted(p for p in PACKAGE.rglob("*") if p.suffix in (".py", ".cu", ".cuh"))
+    assert len(files) >= 15
+    for p in files + [ROOT / "chip_smoke.py"]:
+        for i, line in enumerate(p.read_text().splitlines(), 1):
+            assert not FORBIDDEN.search(line), f"{p.relative_to(ROOT)}:{i}: {line.strip()}"
+
+
+def test_entry_points_raise_without_a_gpu_unless_cpu_is_asked():
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present: the entry points run on it")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        flagship_solver(hw=32, batch=4)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        TripletSegmentationSolver(ExperimentConfig())
+    assert flagship_solver(hw=32, batch=4, device="cpu").device.type == "cpu"
+
+
+def test_kernel_wrappers_take_the_plain_path_only_for_cpu_tensors():
+    x = torch.empty((2, 3, 4, 4), device="meta")
+    s = torch.empty((2, 3), device="meta")
+    for call in (lambda: mk.channel_sums(x), lambda: mk.plane_affine(x, s, s),
+                 lambda: mk.plane_affine_bwd(x, x, s)):
+        with pytest.raises(ValueError):
+            call()
+    cpu = torch.randn(2, 3, 4, 4)
+    torch.testing.assert_close(mk.channel_sums(cpu), mk.channel_sums_plain(cpu))
