@@ -5,41 +5,80 @@
 Phases, each printing its own lines; any failure exits nonzero:
 
 1. device  — the card's name, and its name and power limit from nvidia-smi;
-2. build   — the four CUDA kernels from maxstyle_tpu_torch/csrc/ (nvcc,
-             sm_90a, one process per source, started together);
+2. build   — every CUDA source of maxstyle_tpu_torch/csrc/ (nvcc, sm_90a,
+             one process per source, started together);
 3. kernels — each kernel against its plain PyTorch version on the card at
              every main-path shape, with the stated tolerance, and the
              kernel's, the plain version's and (where one PyTorch call
-             computes the same function) the library call's times;
+             computes the same function) the library call's times: the
+             MaxStyle kernels at the hook shapes of both training cells,
+             the bilinear warp (N=10, 224 -> 192), the spline prefilter's
+             matrix form against its recursion and the cubic warp (N=10,
+             288 -> 224), and conv3x3_bn_stats at its bench's three shapes;
 4. reference — on a small input, the MaxStyle generation through the
              kernels against the plain autograd op, and the stylized and
              predicted outputs finite and of the expected shape;
 5. slice   — the headline training step at full width (effective batch 20,
              224 -> 192, MaxStyle n_iter=5, K=4 steps a call): finite losses,
-             launch counts of exactly 21/21/15/1 per step, and steps/s.
+             launch counts of exactly 21/21/15/1 per step (stats, apply, bwd,
+             bilinear warp), and steps/s;
+6. slice_prostate_cubic — the Prostate MaxStyle config with the cubic warp
+             at full width (effective batch 20, 288 -> 224, 2 classes,
+             n_iter=5, K=4): finite losses, launches of exactly 21/21/15 per
+             step and 1 cubic warp, 0 bilinear, and steps/s;
+7. conv_bn_fusion — the entry point ``python3 -m
+             maxstyle_tpu_torch.proto_conv_bn_fusion``: its ``--check``
+             and its bench, which must launch the fused kernel.
 
-Before the last line it prints one JSON object with every kernel's numbers;
-the last line is {"ok": true, "device": {...}}. Without a GPU, or without
-the package beside it, it exits nonzero and prints no result.
+Each of the last three is a path: every launch count is set to 0 just before
+it and read just after. Before the last line it prints one JSON object with
+every kernel's numbers; the last line is {"ok": true, "device": {...}}.
+Without a GPU, or without the package beside it, it exits nonzero and prints
+no result.
 """
 
 from __future__ import annotations
 
 import json
 import math
-import subprocess
 import sys
 import time
 
-HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory (NVIDIA data sheet)
-FP32_OPS_PER_S = 67e12      # H100 SXM float32 outside the tensor cores
 K_INNER = 4
-PER_STEP = {"maxstyle_stats": 21, "maxstyle_apply": 21, "maxstyle_bwd": 15,
-            "warp_bilinear_nearest": 1}
-# the style hooks of one decode at 192^2: hook 3 (16 ch @ 96^2), hook 4
-# (16 ch @ 192^2), hook 5 (1 ch @ 192^2); effective batch 20
-STYLE_SHAPES = ((20, 16, 96, 96), (20, 16, 192, 192), (20, 1, 192, 192))
-WARP_SHAPE = (10, 224, 192)  # N, padded source side, crop side
+KERNELS = ("maxstyle_stats", "maxstyle_apply", "maxstyle_bwd", "warp_bilinear_nearest",
+           "warp_cubic_nearest", "conv3x3_bn_stats")
+# launches per step of each training path; every other kernel launches 0 times
+PER_STEP = {
+    "slice": {"maxstyle_stats": 21, "maxstyle_apply": 21, "maxstyle_bwd": 15,
+              "warp_bilinear_nearest": 1},
+    "slice_prostate_cubic": {"maxstyle_stats": 21, "maxstyle_apply": 21, "maxstyle_bwd": 15,
+                             "warp_cubic_nearest": 1},
+}
+# which path's run each kernel's "launches" is read from
+LAUNCH_PATH = {"maxstyle_stats": "slice", "maxstyle_apply": "slice", "maxstyle_bwd": "slice",
+               "warp_bilinear_nearest": "slice", "warp_cubic_nearest": "slice_prostate_cubic",
+               "conv3x3_bn_stats": "conv_bn_fusion"}
+# the style hooks of one decode (hook 3: 16 ch at half size, hook 4: 16 ch,
+# hook 5: 1 ch), effective batch 20, for the 192^2 and the 224^2 cells
+STYLE_SHAPES = {"headline": ((20, 16, 96, 96), (20, 16, 192, 192), (20, 1, 192, 192)),
+                "prostate": ((20, 16, 112, 112), (20, 16, 224, 224), (20, 1, 224, 224))}
+WARP_SHAPE = (10, 224, 192)   # N, padded source side, crop side
+CUBIC_SHAPE = (10, 288, 224)
+
+SOURCES = {
+    "maxstyle_stats": ("maxstyle_tpu_torch/csrc/maxstyle.cu",
+                       "maxstyle_tpu/ops/maxstyle_pallas.py:47"),
+    "maxstyle_apply": ("maxstyle_tpu_torch/csrc/maxstyle.cu",
+                       "maxstyle_tpu/ops/maxstyle_pallas.py:57"),
+    "maxstyle_bwd": ("maxstyle_tpu_torch/csrc/maxstyle.cu",
+                     "maxstyle_tpu/ops/maxstyle_pallas.py:62"),
+    "warp_bilinear_nearest": ("maxstyle_tpu_torch/csrc/warp.cu",
+                              "maxstyle_tpu/ops/warp_pallas.py:46"),
+    "warp_cubic_nearest": ("maxstyle_tpu_torch/csrc/warp_cubic.cu",
+                           "maxstyle_tpu/ops/warp_pallas.py:184"),
+    "conv3x3_bn_stats": ("maxstyle_tpu_torch/csrc/conv_bn_stats.cu",
+                         "scripts/proto_conv_bn_fusion.py:41"),
+}
 
 
 def fail(msg: str) -> None:
@@ -47,56 +86,19 @@ def fail(msg: str) -> None:
     sys.exit(1)
 
 
-def bound_ms(nbytes: float, ops: float) -> float:
-    return 1e3 * max(nbytes / HBM_BYTES_PER_S, ops / FP32_OPS_PER_S)
-
-
-def cuda_ms(fn, n_buffers: int, iters: int = 20, reps: int = 5) -> float:
-    """Median per-call device time of fn(i), by CUDA events around the
-    replay of a CUDA graph of ``iters`` calls that cycle through
-    ``n_buffers`` input copies (so inputs come from device memory, not L2).
-    The graph keeps the host's launch cost out of the time: a single small
-    launch from Python takes longer on the host than on the card."""
-    import torch
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
-        for i in range(3):
-            fn(i % n_buffers)
-    torch.cuda.current_stream().wait_stream(side)
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        for i in range(iters):
-            fn(i % n_buffers)
-    graph.replay()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        graph.replay()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end) / iters)
-    del graph
-    times.sort()
-    return times[len(times) // 2]
-
-
 def phase_device():
     import torch
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: chip_smoke needs a GPU")
+    from maxstyle_tpu_torch.flagship import set_float32_policy
+    from maxstyle_tpu_torch.timing import card
     name = torch.cuda.get_device_name(0)
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True, text=True,
-                         timeout=60)
-    card = smi.stdout.strip().splitlines()[0] if smi.returncode == 0 else "nvidia-smi failed"
+    smi = card()
     print(f"device: {name}; count {torch.cuda.device_count()}; torch {torch.__version__} "
           f"cuda {torch.version.cuda}")
-    print(f"nvidia-smi: {card}")
-    return name, card
+    print(f"nvidia-smi: {smi}")
+    set_float32_policy(torch.device("cuda"))
+    return name, smi
 
 
 def phase_build():
@@ -110,51 +112,34 @@ def phase_build():
           f"(phase {time.perf_counter() - t0:.2f} s)")
 
 
-def _style_case(shape, copies, seed):
-    import torch
-    g = torch.Generator(device="cuda").manual_seed(seed)
-    b, c = shape[:2]
-    xs = [torch.randn(shape, generator=g, device="cuda") * 2 + 1 for _ in range(copies)]
-    gs = [torch.randn(shape, generator=g, device="cuda") for _ in range(copies)]
-    scale = torch.randn((b, c), generator=g, device="cuda")
-    shift = torch.randn((b, c), generator=g, device="cuda")
-    return xs, gs, scale, shift
-
-
-def phase_kernels():
-    """Each kernel vs its plain version at every main-path shape."""
+def _style_rows(rows, cell, shapes):
+    """The three MaxStyle kernels against their plain versions at one cell's
+    hook shapes; returns whether all agree."""
     import torch
     from maxstyle_tpu_torch.ops import maxstyle_kernels as mk
-    from maxstyle_tpu_torch.ops import warp_kernels as wk
+    from maxstyle_tpu_torch.timing import bound_ms, copies_beyond_l2, cuda_ms
 
     def norm_err(k, p, ref_abs):
         return float(((k - p).abs() / ref_abs.clamp_min(1e-30)).max())
 
-    rows = {name: {"name": name, "route": "cuda", "shapes": []} for name in PER_STEP}
-    rows["maxstyle_stats"].update(source="maxstyle_tpu_torch/csrc/maxstyle.cu",
-                                  replaces="maxstyle_tpu/ops/maxstyle_pallas.py:47")
-    rows["maxstyle_apply"].update(source="maxstyle_tpu_torch/csrc/maxstyle.cu",
-                                  replaces="maxstyle_tpu/ops/maxstyle_pallas.py:57")
-    rows["maxstyle_bwd"].update(source="maxstyle_tpu_torch/csrc/maxstyle.cu",
-                                replaces="maxstyle_tpu/ops/maxstyle_pallas.py:62")
-    rows["warp_bilinear_nearest"].update(source="maxstyle_tpu_torch/csrc/warp.cu",
-                                         replaces="maxstyle_tpu/ops/warp_pallas.py:46")
     ok = True
-    for si, shape in enumerate(STYLE_SHAPES):
+    for si, shape in enumerate(shapes):
         n_el = math.prod(shape)
         b, c = shape[:2]
-        copies = max(2, int(math.ceil(200e6 / (n_el * 4))))  # > 4x the 50 MB L2
-        xs, gs, scale, shift = _style_case(shape, copies, seed=si)
-        x, g = xs[0], gs[0]
-        s4 = scale[:, :, None, None]
-        t4 = shift[:, :, None, None]
+        copies = copies_beyond_l2(n_el * 4)
+        g = torch.Generator(device="cuda").manual_seed(si)
+        xs = [torch.randn(shape, generator=g, device="cuda") * 2 + 1 for _ in range(copies)]
+        gs = [torch.randn(shape, generator=g, device="cuda") for _ in range(copies)]
+        scale = torch.randn((b, c), generator=g, device="cuda")
+        shift = torch.randn((b, c), generator=g, device="cuda")
+        x, gr = xs[0], gs[0]
+        s4, t4 = scale[:, :, None, None], shift[:, :, None, None]
 
         # stats: sum and sum of squares per plane; tolerance 1e-5 of sum|terms|
         k, p = mk.channel_sums(x), mk.channel_sums_plain(x)
-        ref_abs = torch.stack([x.abs().sum((2, 3)), (x * x).sum((2, 3))], 1)
-        err = norm_err(k, p, ref_abs)
+        err = norm_err(k, p, torch.stack([x.abs().sum((2, 3)), (x * x).sum((2, 3))], 1))
         rows["maxstyle_stats"]["shapes"].append(dict(
-            shape=list(shape), max_abs_err=float((k - p).abs().max()), rel_err=err,
+            cell=cell, shape=list(shape), max_abs_err=float((k - p).abs().max()), rel_err=err,
             tol=1e-5, ms=cuda_ms(lambda i: mk.channel_sums(xs[i]), copies),
             plain_ms=cuda_ms(lambda i: mk.channel_sums_plain(xs[i]), copies),
             library_ms=cuda_ms(lambda i: torch.var_mean(xs[i], dim=(2, 3)), copies),
@@ -166,7 +151,7 @@ def phase_kernels():
         k, p = mk.plane_affine(x, scale, shift), mk.plane_affine_plain(x, scale, shift)
         err = float((k - p).abs().max() / p.abs().max())
         rows["maxstyle_apply"]["shapes"].append(dict(
-            shape=list(shape), max_abs_err=float((k - p).abs().max()), rel_err=err,
+            cell=cell, shape=list(shape), max_abs_err=float((k - p).abs().max()), rel_err=err,
             tol=1e-6, ms=cuda_ms(lambda i: mk.plane_affine(xs[i], scale, shift), copies),
             plain_ms=cuda_ms(lambda i: mk.plane_affine_plain(xs[i], scale, shift), copies),
             library_ms=cuda_ms(lambda i: torch.addcmul(t4, xs[i], s4), copies),
@@ -174,11 +159,11 @@ def phase_kernels():
         ok &= err <= 1e-6
 
         # bwd: dx = g * scale (exact), sums of g and g*x (1e-5 of sum|terms|)
-        (dk, sk), (dp, sp) = mk.plane_affine_bwd(g, x, scale), mk.plane_affine_bwd_plain(g, x, scale)
-        ref_abs = torch.stack([g.abs().sum((2, 3)), (g * x).abs().sum((2, 3))], 1)
+        (dk, sk), (dp, sp) = mk.plane_affine_bwd(gr, x, scale), mk.plane_affine_bwd_plain(gr, x, scale)
+        ref_abs = torch.stack([gr.abs().sum((2, 3)), (gr * x).abs().sum((2, 3))], 1)
         err = max(float((dk - dp).abs().max()), norm_err(sk, sp, ref_abs))
         rows["maxstyle_bwd"]["shapes"].append(dict(
-            shape=list(shape),
+            cell=cell, shape=list(shape),
             max_abs_err=max(float((dk - dp).abs().max()), float((sk - sp).abs().max())),
             rel_err=err, tol=1e-5,
             ms=cuda_ms(lambda i: mk.plane_affine_bwd(gs[i], xs[i], scale), copies),
@@ -187,39 +172,143 @@ def phase_kernels():
             bound_ms=bound_ms(3 * n_el * 4 + 3 * b * c * 4, 4 * n_el)))
         ok &= err <= 1e-5
         del xs, gs
+    return ok
 
-    # warp: bit-exact (the kernel rounds each op as the plain version does)
-    n, H, h = WARP_SHAPE
-    gen = torch.Generator(device="cuda").manual_seed(7)
-    copies = 8
-    imgs = [torch.rand((n, H, H), generator=gen, device="cuda") for _ in range(copies)]
-    labs = [torch.randint(0, 4, (n, H, H), generator=gen, device="cuda", dtype=torch.int32)
-            for _ in range(copies)]
-    sys_ = [torch.rand((n, h, h), generator=gen, device="cuda") * (H + 4) - 2
-            for _ in range(copies)]
-    sxs = [torch.rand((n, h, h), generator=gen, device="cuda") * (H + 4) - 2
-           for _ in range(copies)]
-    ki, kl = wk.warp_bilinear_nearest(imgs[0], labs[0], sys_[0], sxs[0])
-    pi, pl = wk.warp_bilinear_nearest_plain(imgs[0], labs[0], sys_[0], sxs[0])
-    img_err = float((ki - pi).abs().max())
-    lab_err = int((kl != pl).sum())
-    px = n * h * h
-    rows["warp_bilinear_nearest"]["shapes"].append(dict(
-        shape=[n, H, H, h, h], max_abs_err=img_err, label_mismatches=lab_err, tol=0.0,
-        ms=cuda_ms(lambda i: wk.warp_bilinear_nearest(imgs[i], labs[i], sys_[i], sxs[i]),
-                   copies),
-        plain_ms=cuda_ms(lambda i: wk.warp_bilinear_nearest_plain(imgs[i], labs[i], sys_[i],
-                                                                   sxs[i]), copies),
-        library_ms=None,
-        bound_ms=bound_ms(n * H * H * 8 + px * 8 + px * 8, 20 * px)))
-    ok &= img_err == 0.0 and lab_err == 0
 
+def _warp_case(shape, policy_name, seed, copies):
+    """Copies of images in [0, 1), int32 labels and two sets of source
+    coordinates: uniform ones reaching 2 pixels outside the source on every
+    side (the edge cases), and the main path's own, drawn from the policy."""
+    import torch
+    from maxstyle_tpu_torch.data import augment as A
+    n, H, h = shape
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    policy = A.get_policy(policy_name, (H, H), (h, h))
+    case = {"img": [], "lab": [], "uniform": [], "policy": []}
+    for _ in range(copies):
+        case["img"].append(torch.rand((n, H, H), generator=gen, device="cuda"))
+        case["lab"].append(torch.randint(0, 4, (n, H, H), generator=gen, device="cuda",
+                                         dtype=torch.int32))
+        case["uniform"].append(tuple(torch.rand((n, h, h), generator=gen, device="cuda")
+                                     * (H + 3) - 2 for _ in range(2)))
+        case["policy"].append(tuple(t.contiguous() for t in
+                                    A.aug_coords(A.draw_aug(gen, policy, n), policy)))
+    return case
+
+
+def _warp_rows(rows):
+    """Both warps against their plain versions, bit for bit, at uniform and
+    at the main path's coordinates, timed at the main path's; and the
+    prefilter's matrix form against its recursion at atol 1e-5."""
+    from maxstyle_tpu_torch.ops import spline
+    from maxstyle_tpu_torch.ops import warp_kernels as wk
+    from maxstyle_tpu_torch.timing import bound_ms, copies_beyond_l2, cuda_ms
+
+    def mismatch(kernel, plain, images, case):
+        """(largest image difference, label mismatches) over both coordinate
+        sets."""
+        img_err, lab_err = 0.0, 0
+        for coords in ("uniform", "policy"):
+            (ki, kl), (pi, pl) = (f(images, case["lab"][0], *case[coords][0])
+                                  for f in (kernel, plain))
+            img_err = max(img_err, float((ki - pi).abs().max()))
+            lab_err += int((kl != pl).sum())
+        return img_err, lab_err
+
+    ok = True
+    # (kernel, shape, policy, float operations a pixel: taps and weights)
+    for name, shape, policy, ops in (("warp_bilinear_nearest", WARP_SHAPE,
+                                      "ACDC_affine_elastic_intensity", 20),
+                                     ("warp_cubic_nearest", CUBIC_SHAPE,
+                                      "Prostate_affine_elastic_intensity", 70)):
+        n, H, h = shape
+        px = n * h * h
+        copies = copies_beyond_l2(n * H * H * 8 + px * 8)
+        case = _warp_case(shape, policy, 7, copies)
+        labs, crd = case["lab"], case["policy"]
+        row = dict(shape=[n, H, H, h, h], tol=0.0, library_ms=None,
+                   bound_ms=bound_ms(n * H * H * 8 + px * 8 + px * 8, ops * px))
+        if name == "warp_bilinear_nearest":
+            imgs = case["img"]
+            img_err, lab_err = mismatch(wk.warp_bilinear_nearest, wk.warp_bilinear_nearest_plain,
+                                        imgs[0], case)
+            row.update(cell="headline", ms=cuda_ms(
+                lambda i: wk.warp_bilinear_nearest(imgs[i], labs[i], *crd[i]), copies),
+                plain_ms=cuda_ms(
+                    lambda i: wk.warp_bilinear_nearest_plain(imgs[i], labs[i], *crd[i]), copies))
+        else:
+            coefs = [spline.spline_filter2d_matrix(im) for im in case["img"]]
+            pre_err = float((coefs[0] - spline.spline_filter2d(case["img"][0])).abs().max())
+            img_err, lab_err = mismatch(wk.sample_cubic_nearest, wk.sample_cubic_nearest_plain,
+                                        coefs[0], case)
+            whole_err, whole_lab = mismatch(wk.warp_cubic_nearest, wk.warp_cubic_nearest_plain,
+                                            case["img"][0], case)
+            ok &= pre_err <= 1e-5 and whole_err == 0.0 and whole_lab == 0
+            row.update(cell="prostate_cubic", prefilter_matrix_vs_loop_err=pre_err,
+                       prefilter_tol=1e-5, wrapper_err=whole_err, wrapper_label_mismatches=whole_lab,
+                       ms=cuda_ms(lambda i: wk.sample_cubic_nearest(coefs[i], labs[i], *crd[i]),
+                                  copies),
+                       plain_ms=cuda_ms(
+                           lambda i: wk.sample_cubic_nearest_plain(coefs[i], labs[i], *crd[i]),
+                           copies),
+                       uniform_coords_ms=cuda_ms(lambda i: wk.sample_cubic_nearest(
+                           coefs[i], labs[i], *case["uniform"][i]), copies),
+                       prefilter_ms=cuda_ms(lambda i: spline.spline_filter2d_matrix(
+                           case["img"][i]), copies))
+        row.update(max_abs_err=img_err, label_mismatches=lab_err)
+        rows[name]["shapes"].append(row)
+        ok &= img_err == 0.0 and lab_err == 0
+        del case
+    return ok
+
+
+def _conv_rows(rows):
+    """conv3x3_bn_stats against its plain version at the bench's shapes,
+    with the prototype's check() tolerances."""
+    import torch.nn.functional as F
+    from maxstyle_tpu_torch import proto_conv_bn_fusion as P
+    from maxstyle_tpu_torch.timing import bound_ms, copies_beyond_l2, cuda_ms
+
+    ok = True
+    for i, shape in enumerate(P.SHAPES):
+        bsz, hw, c = shape
+        copies = copies_beyond_l2(4 * bsz * c * hw * hw)
+        xs, w, b = P.make_case(shape, i, "cuda", copies)
+        res = P.compare(P.conv3x3_bn_stats(xs[0], w, b), P.conv3x3_bn_stats_plain(xs[0], w, b))
+        rows["conv3x3_bn_stats"]["shapes"].append(dict(
+            cell="conv_bn_fusion", shape=list(shape), max_abs_err=res["max_abs_err"],
+            rel_err=res["worst"], tol=1.0, errors_in_tolerances=res,
+            ms=cuda_ms(lambda k: P.conv3x3_bn_stats(xs[k], w, b), copies),
+            plain_ms=cuda_ms(lambda k: P.conv3x3_bn_stats_plain(xs[k], w, b), copies),
+            library_ms=cuda_ms(lambda k: P.conv_stats_library(xs[k], w, b), copies),
+            cudnn_conv_ms=cuda_ms(lambda k: F.conv2d(xs[k], w, b, padding=1), copies),
+            bound_ms=bound_ms(*P.work(shape))))
+        ok &= res["worst"] <= 1.0
+        del xs
+    return ok
+
+
+def phase_kernels():
+    """Each kernel vs its plain version at every main-path shape."""
+    rows = {name: {"name": name, "route": "cuda", "source": SOURCES[name][0],
+                   "replaces": SOURCES[name][1], "shapes": []} for name in KERNELS}
+    ok = True
+    for cell, shapes in STYLE_SHAPES.items():
+        ok &= _style_rows(rows, cell, shapes)
+    ok &= _warp_rows(rows)
+    ok &= _conv_rows(rows)
     for row in rows.values():
         for s in row["shapes"]:
-            print(f"kernel {row['name']} {s['shape']}: max abs err {s['max_abs_err']:.3e}, "
+            extra = "".join(f" {k} {s[k]:.5f}" for k in
+                            ("uniform_coords_ms", "prefilter_ms", "cudnn_conv_ms") if k in s)
+            print(f"kernel {row['name']} {s['cell']} {s['shape']}: "
+                  f"max abs err {s['max_abs_err']:.3e}, "
                   f"checked err {s.get('rel_err', s['max_abs_err']):.3e} (tol {s['tol']}) "
                   f"ms {s['ms']:.5f} plain {s['plain_ms']:.5f} "
-                  f"library {s['library_ms']} bound {s['bound_ms']:.5f}")
+                  f"library {s['library_ms']} bound {s['bound_ms']:.5f}{extra}")
+    print(f"kernel warp_cubic_nearest prefilter: matrix vs recursion max err "
+          f"{rows['warp_cubic_nearest']['shapes'][0]['prefilter_matrix_vs_loop_err']:.3e} "
+          f"(tol 1e-5)")
     if not ok:
         fail("a kernel disagrees with its plain version")
     return rows
@@ -281,35 +370,56 @@ def phase_reference():
         fail("unexpected output shapes")
 
 
-def phase_slice(card: str):
+def phase_train(path: str, solver, smi: str, desc: str):
+    """Drive one training path: K_INNER-step calls of make_multi_step (one
+    warm-up, then 3 rounds of 2), with the launch counts set to 0 just
+    before and read just after. Checks finite losses and the launches per
+    step of PER_STEP[path]."""
     import torch
     from maxstyle_tpu_torch import kernels
-    from maxstyle_tpu_torch.flagship import flagship_solver, measure_throughput
+    from maxstyle_tpu_torch.flagship import measure_throughput
 
-    solver = flagship_solver(hw=192, batch=20, device="cuda")
+    torch.cuda.reset_peak_memory_stats()
     kernels.reset_launches()
     t0 = time.perf_counter()
-    rate, state, metrics = measure_throughput(solver, half_batch=10, pad=224, crop=192,
-                                              k_inner=K_INNER, n_calls=2, n_repeats=3)
+    rate, state, metrics = measure_throughput(solver, k_inner=K_INNER, n_calls=2, n_repeats=3)
     torch.cuda.synchronize()
     launches = dict(kernels.LAUNCHES)
     steps = state.step
     last = {k: float(v) for k, v in metrics.items()}
-    print(f"slice: metrics of the last call (mean of {K_INNER} steps) {json.dumps(last)}")
-    print(f"slice: launches over {steps} steps {json.dumps(launches)}")
-    print(f"slice: {rate:.4f} steps/s (median of 3 rounds of 2 calls x {K_INNER} steps, "
-          f"effective batch 20 @192^2, float32) on {card}; "
-          f"phase {time.perf_counter() - t0:.1f} s; "
+    print(f"{path}: metrics of the last call (mean of {K_INNER} steps) {json.dumps(last)}")
+    print(f"{path}: launches over {steps} steps {json.dumps(launches)}")
+    print(f"{path}: {rate:.4f} steps/s (median of 3 rounds of 2 calls x {K_INNER} steps, "
+          f"{desc}, float32) on {smi}; phase {time.perf_counter() - t0:.1f} s; "
           f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     if steps != K_INNER * (1 + 2 * 3):
-        fail(f"the slice ran {steps} steps, expected {K_INNER * 7}")
+        fail(f"{path} ran {steps} steps, expected {K_INNER * 7}")
     if not all(math.isfinite(v) for v in last.values()):
-        fail("non-finite loss in the training slice")
-    for name, per in PER_STEP.items():
-        if launches[name] != per * steps:
-            fail(f"{name}: {launches[name]} launches over {steps} steps, "
-                 f"expected {per} per step")
-    return launches, rate
+        fail(f"non-finite loss in {path}")
+    for name in KERNELS:
+        want = PER_STEP[path].get(name, 0) * steps
+        if launches[name] != want:
+            fail(f"{path}: {name} launched {launches[name]} times over {steps} steps, "
+                 f"expected {want}")
+    return launches
+
+
+def phase_conv_bn_fusion():
+    """The conv+BN-statistics entry point, as a user runs it: --check, then
+    the bench."""
+    from maxstyle_tpu_torch import kernels
+    from maxstyle_tpu_torch import proto_conv_bn_fusion as P
+
+    kernels.reset_launches()
+    if P.main(["--check"]) != 0:
+        fail("proto_conv_bn_fusion --check failed")
+    P.main([])
+    launches = dict(kernels.LAUNCHES)
+    print(f"conv_bn_fusion: launches {json.dumps(launches)}")
+    if launches["conv3x3_bn_stats"] == 0 or any(
+            n for k, n in launches.items() if k != "conv3x3_bn_stats"):
+        fail("the conv_bn_fusion entry point did not run (only) the fused kernel")
+    return launches
 
 
 def main():
@@ -318,24 +428,38 @@ def main():
         import maxstyle_tpu_torch  # noqa: F401
     except ImportError as e:
         fail(f"the port is not importable beside this script: {e}")
-    name, card = phase_device()
+    from maxstyle_tpu_torch.flagship import flagship_solver, prostate_cubic_solver
+
+    name, smi = phase_device()
     phase_build()
     rows = phase_kernels()
     phase_reference()
-    launches, _ = phase_slice(card)
+    paths = {
+        "slice": phase_train("slice", flagship_solver(hw=192, batch=20, device="cuda"), smi,
+                             "headline, effective batch 20 @192^2"),
+        "slice_prostate_cubic": phase_train(
+            "slice_prostate_cubic", prostate_cubic_solver(device="cuda"), smi,
+            "Prostate cubic, effective batch 20 @224^2"),
+        "conv_bn_fusion": phase_conv_bn_fusion(),
+    }
 
     out = []
     for kname, row in rows.items():
         shapes = row.pop("shapes")
+        # a MaxStyle row sums one styled decode of the headline cell (its
+        # three hook shapes); the other rows sum their own shapes
+        main = [s for s in shapes if s["cell"] != "prostate"]
 
         def total(key):
-            vals = [s[key] for s in shapes]
+            vals = [s[key] for s in main]
             return None if any(v is None for v in vals) else sum(vals)
 
-        out.append({**row, "launches": launches[kname],
+        out.append({**row, "launches": paths[LAUNCH_PATH[kname]][kname],
+                    "launches_by_path": {p: n[kname] for p, n in paths.items()},
                     "max_abs_err": max(s["max_abs_err"] for s in shapes),
                     "ms": total("ms"), "plain_ms": total("plain_ms"),
-                    "bound_ms": total("bound_ms"), "bound_by": "bytes",
+                    "bound_ms": total("bound_ms"),
+                    "bound_by": "operations" if kname == "conv3x3_bn_stats" else "bytes",
                     "library_ms": total("library_ms"), "shapes": shapes})
     print(json.dumps({"kernels": out}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

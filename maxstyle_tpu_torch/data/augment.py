@@ -4,28 +4,29 @@ Counterpart of ``maxstyle_tpu/data/augment.py``. The whole geometric chain
 (random affine, 45-degree group rotation, flips, random crop and a gated
 elastic field) composes into one inverse warp per sample; the elastic field
 is smoothed uniform noise, smoothed in Fourier space. Images are sampled
-bilinearly and labels by nearest neighbour.
+bilinearly, or by an order-3 B-spline with ``image_interp="cubic"``
+(``ops/spline.py``); labels by nearest neighbour. After the warp come
+brightness/contrast, the smooth bias field (V2), the multi-scale bias field
+with noise (V1), gamma, and a per-slice min-max.
 
 Random draws are split from the arithmetic: :func:`draw_aug` takes a
 ``torch.Generator`` and draws every number for a batch at once;
 :func:`aug_coords` and :func:`post_warp_intensity` are deterministic in
 those draws, so tests can feed them the numbers JAX drew.
-
-Not ported yet (they raise ``NotImplementedError``): the bias-field and V1
-perturbation intensity branches, which need a bicubic resize matching
-``jax.image.resize``, and the cubic image warp (``image_interp="cubic"``).
-``ACDC_affine_elastic_intensity`` uses none of them.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Dict, Optional, Tuple
 
+import numpy as np
 import torch
 
-from maxstyle_tpu_torch.ops.warp_kernels import warp_bilinear_nearest
+from maxstyle_tpu_torch.ops.spline import map_coordinates_cubic
+from maxstyle_tpu_torch.ops.warp_kernels import warp_bilinear_nearest, warp_cubic_nearest
 
 Draws = Dict[str, torch.Tensor]
 
@@ -126,12 +127,10 @@ def get_policy(name: str, pad_hw=(224, 224), crop_hw=(192, 192),
     return pol
 
 
-def _check_ported(p: AugPolicy) -> None:
-    if p.bias_field_prob > 0 or p.perturb_v1_prob > 0:
-        raise NotImplementedError("the bias-field and V1 perturbation branches are "
-                                  "not ported yet")
-    if p.image_interp != "bilinear":
-        raise NotImplementedError("the cubic warp is not ported yet")
+def bias_grid_hw(crop_hw: Tuple[int, int], control_spacing: int = 32) -> Tuple[int, int]:
+    """Control-grid size of the V2 bias field: one point every
+    ``control_spacing`` pixels, at least 2 a side."""
+    return max(crop_hw[0] // control_spacing, 2), max(crop_hw[1] // control_spacing, 2)
 
 
 # ---------------------------------------------------------------------------
@@ -144,7 +143,10 @@ def draw_aug(generator: torch.Generator, policy: AugPolicy, n: int) -> Draws:
     generator's device: the affine's angles, zooms, shifts, group index and
     flip uniforms; the crop offset; the elastic gate uniform, alpha, sigma
     and noise field; the intensity gate uniform, contrast and brightness;
-    the gamma gate uniform and exponent."""
+    the gamma gate uniform and exponent. Then, only for a branch whose
+    probability is above 0 (so that other policies draw the same stream):
+    the bias-field gate uniform and U(-1, 1) control grid, and the V1 gate
+    uniform, one U(0, 1) control grid per scale and the N(0, 1) noise."""
     p = policy
     dev = generator.device
     H, W = p.pad_hw
@@ -156,7 +158,7 @@ def draw_aug(generator: torch.Generator, policy: AugPolicy, n: int) -> Draws:
     def randint(hi):
         return torch.randint(0, hi, (n,), generator=generator, device=dev)
 
-    return {
+    d = {
         "theta_deg": uni(-p.rotate_deg, p.rotate_deg),
         "shear_deg": uni(-p.shear_deg, p.shear_deg),
         "zy": uni(*p.zoom_range), "zx": uni(*p.zoom_range),
@@ -173,6 +175,16 @@ def draw_aug(generator: torch.Generator, policy: AugPolicy, n: int) -> Draws:
         "contrast": uni(*p.contrast_range), "brightness": uni(*p.brightness_range),
         "gamma_u": uni(0.0, 1.0), "gamma": uni(*p.gamma_range),
     }
+    if p.bias_field_prob > 0:
+        d["bias_u"] = uni(0.0, 1.0)
+        d["bias_grid"] = uni(-1.0, 1.0, (n,) + bias_grid_hw(p.crop_hw))
+    if p.perturb_v1_prob > 0:
+        d["v1_u"] = uni(0.0, 1.0)
+        for cp in p.perturb_v1_control_points:
+            d[f"v1_grid{cp}"] = uni(0.0, 1.0, (n, cp, cp))
+        if p.perturb_v1_noise_eps > 0:
+            d["v1_noise"] = torch.randn((n, h, w), generator=generator, device=dev)
+    return d
 
 
 # ---------------------------------------------------------------------------
@@ -208,19 +220,99 @@ def affine_matrix(d: Draws, p: AugPolicy) -> torch.Tensor:
                         torch.stack([i10, i11, t1], -1)], -2)
 
 
+def fft_gaussian_smooth(x: torch.Tensor, sigma) -> torch.Tensor:
+    """Gaussian-smooth fields [..., H, W] in Fourier space: multiply by the
+    Gaussian's transfer function exp(-2 pi^2 sigma^2 f^2). ``sigma`` is a
+    float, or a tensor shaped like x's leading axes followed by (1, 1)."""
+    h, w = x.shape[-2:]
+    fy = torch.fft.fftfreq(h, device=x.device)[:, None]
+    fx = torch.fft.rfftfreq(w, device=x.device)[None, :]
+    transfer = torch.exp(-2.0 * (math.pi ** 2) * (sigma ** 2) * (fy ** 2 + fx ** 2))
+    return torch.fft.irfft2(torch.fft.rfft2(x) * transfer, s=(h, w))
+
+
 def fft_gaussian_field(noise: torch.Tensor, sigma: torch.Tensor, alpha: torch.Tensor
                        ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Gaussian-smoothed noise [n,2,H,W] times alpha [n] -> (dy, dx) [n,H,W];
-    the smoothing multiplies by the Gaussian's transfer function
-    exp(-2 pi^2 sigma^2 f^2) in Fourier space."""
-    n, _, h, w = noise.shape
-    fy = torch.fft.fftfreq(h, device=noise.device)[:, None]
-    fx = torch.fft.rfftfreq(w, device=noise.device)[None, :]
-    transfer = torch.exp(-2.0 * (math.pi ** 2) * (sigma ** 2)[:, None, None]
-                         * (fy ** 2 + fx ** 2))
-    sm = torch.fft.irfft2(torch.fft.rfft2(noise) * transfer[:, None], s=(h, w))
+    """Gaussian-smoothed noise [n,2,H,W] times alpha [n] -> (dy, dx) [n,H,W],
+    each sample smoothed at its own sigma [n]."""
+    sm = fft_gaussian_smooth(noise, sigma[:, None, None, None])
     a = alpha[:, None, None]
     return sm[:, 0] * a, sm[:, 1] * a
+
+
+def _fma32(a, b, c) -> np.ndarray:
+    """float32 fused multiply-add: a * b + c rounded once (exact in float64
+    for float32 inputs, then rounded)."""
+    return (np.asarray(a, np.float64) * np.asarray(b, np.float64)
+            + np.asarray(c, np.float64)).astype(np.float32)
+
+
+@functools.lru_cache(maxsize=None)
+def _resize_weights(n_in: int, n_out: int) -> np.ndarray:
+    """[n_in, n_out] float32 bicubic resize weights as ``jax.image.resize``
+    builds them: half-pixel centres, Keys' cubic kernel with a = -0.5, each
+    output's weights renormalised over the taps inside the input, and zero
+    for a sample outside [-0.5, n_in - 0.5]; upsampling, so nothing is
+    antialiased. The arithmetic is float32 with the multiply-adds fused, as
+    XLA compiles that function, so the weights are JAX's to the bit at the
+    sizes the policies use."""
+    f32 = np.float32
+    inv_scale = f32(1.0 / (n_out / n_in))
+    sample = _fma32(np.arange(n_out, dtype=f32) + f32(0.5), inv_scale, f32(-0.5))
+    x = np.abs(sample[None, :] - np.arange(n_in, dtype=f32)[:, None])
+    near = _fma32(_fma32(f32(1.5), x, f32(-2.5)) * x, x, f32(1.0))
+    far = _fma32(_fma32(_fma32(f32(-0.5), x, f32(2.5)), x, f32(-4.0)), x, f32(2.0))
+    wts = np.where(x >= 2.0, f32(0.0), np.where(x >= 1.0, far, near))
+    total = wts.sum(axis=0, keepdims=True, dtype=f32)
+    wts = np.where(np.abs(total) > f32(1000.0 * float(np.finfo(np.float32).eps)),
+                   wts / np.where(total != 0, total, f32(1.0)), f32(0.0))
+    inside = (sample >= -0.5) & (sample <= f32(n_in - 0.5))
+    return np.where(inside[None, :], wts, f32(0.0)).astype(f32)
+
+
+def resize_bicubic(x: torch.Tensor, out_hw: Tuple[int, int]) -> torch.Tensor:
+    """[n,h_in,w_in] -> [n,h,w], ``jax.image.resize(method="bicubic")`` per
+    sample, as two matrix products with the weights of
+    :func:`_resize_weights`."""
+    h_in, w_in = x.shape[-2:]
+    h, w = out_hw
+    out = x
+    if h != h_in:
+        wh = torch.from_numpy(_resize_weights(h_in, h)).to(x.device, x.dtype)
+        out = torch.matmul(wh.t(), out)
+    if w != w_in:
+        ww = torch.from_numpy(_resize_weights(w_in, w)).to(x.device, x.dtype)
+        out = torch.matmul(out, ww)
+    return out
+
+
+def bias_field(grid: torch.Tensor, hw: Tuple[int, int], magnitude: float) -> torch.Tensor:
+    """Smooth multiplicative bias field (the reference's
+    MyRandomPurtarbationV2 b-spline field, intensity_transform.py:375-548):
+    the U(-1, 1) control grid [n,gh,gw] bicubically upsampled to [n,h,w],
+    scaled to 1 +- magnitude."""
+    field = resize_bicubic(grid, hw)
+    mx = field.abs().amax(dim=(1, 2), keepdim=True) + 1e-10
+    return 1.0 + magnitude * field / mx
+
+
+def multiscale_bias_field(grids, hw: Tuple[int, int], control_points: Tuple[int, ...],
+                          max_sigma: float, magnitude: float) -> torch.Tensor:
+    """The V1 bias field (the reference's MyRandomPurtarbation,
+    intensity_transform.py:318-353, with the JAX package's documented
+    deviations): each U(0, 1) control grid [n,cp,cp] smoothed at sigma
+    cp/4, bicubically upsampled and normalised to mass 1/cp; their sum
+    smoothed at ``max_sigma``, normalised to unit mean and clipped to
+    [1 - magnitude, 1 + magnitude]."""
+    h, w = hw
+    total = None
+    for grid, cp in zip(grids, control_points):
+        field = resize_bicubic(fft_gaussian_smooth(grid, cp / 4.0), hw)
+        field = field / (field.sum(dim=(1, 2), keepdim=True) * cp / (h * w) + 1e-12)
+        total = field if total is None else total + field
+    total = fft_gaussian_smooth(total, max_sigma)
+    total = total / (total.mean(dim=(1, 2), keepdim=True) + 1e-12)
+    return torch.clamp(total, 1.0 - magnitude, 1.0 + magnitude)
 
 
 def aug_coords(d: Draws, policy: AugPolicy) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -291,14 +383,28 @@ def percentile_minmax(img: torch.Tensor, eps: float = 1e-20) -> torch.Tensor:
 
 
 def post_warp_intensity(d: Draws, img: torch.Tensor, policy: AugPolicy) -> torch.Tensor:
-    """Brightness/contrast and gamma, then the final per-slice min-max."""
+    """Brightness/contrast, the V2 bias field, the V1 bias field with noise,
+    gamma, then the final per-slice min-max."""
     p = policy
-    _check_ported(p)
     if p.intensity_prob > 0:
         do_int = (d["intensity_u"] < p.intensity_prob)[:, None, None]
         c = d["contrast"][:, None, None]
         b = d["brightness"][:, None, None]
         img = torch.where(do_int, c * img + b, img)
+    if p.bias_field_prob > 0:
+        do_bias = (d["bias_u"] < p.bias_field_prob)[:, None, None]
+        field = bias_field(d["bias_grid"], p.crop_hw, p.bias_field_magnitude)
+        img = torch.where(do_bias, img * field, img)
+    if p.perturb_v1_prob > 0:
+        # min-max, noise and a clip to [0, 1] (intensity_transform.py:354-366)
+        do_p = (d["v1_u"] < p.perturb_v1_prob)[:, None, None]
+        cps = p.perturb_v1_control_points
+        field = multiscale_bias_field([d[f"v1_grid{cp}"] for cp in cps], p.crop_hw, cps,
+                                      p.perturb_v1_max_sigma, p.perturb_v1_magnitude)
+        pert = percentile_minmax(img * field)
+        if p.perturb_v1_noise_eps > 0:
+            pert = torch.clamp(pert + p.perturb_v1_noise_eps * d["v1_noise"], 0.0, 1.0)
+        img = torch.where(do_p, pert, img)
     if p.gamma_prob > 0:
         do_gamma = (d["gamma_u"] < p.gamma_prob)[:, None, None]
         img = torch.where(do_gamma, percentile_minmax(img) ** d["gamma"][:, None, None], img)
@@ -330,20 +436,23 @@ def augment_batch_inner(generator: torch.Generator, images: torch.Tensor,
                         warp_backend: str = "kernel", draws: Optional[Draws] = None):
     """[n,H,W] padded slices -> ([n,h,w,1] float32, [n,h,w] int32).
 
-    warp_backend: "kernel" (``ops/warp_kernels.py``: the CUDA kernel on the
-    GPU, its plain version on the CPU; labels round half up) or "gather"
-    (:func:`sample_bilinear` / :func:`sample_nearest`; labels round half to
-    even). ``draws`` pins the random numbers (see :func:`draw_aug`)."""
-    _check_ported(policy)
+    warp_backend: "kernel" (``ops/warp_kernels.py``: the CUDA kernels on the
+    GPU, their plain versions on the CPU; labels round half up) or "gather"
+    (:func:`sample_bilinear` or ``ops/spline.map_coordinates_cubic``, and
+    :func:`sample_nearest`; labels round half to even). The policy's
+    ``image_interp`` picks the bilinear or the cubic image warp. ``draws``
+    pins the random numbers (see :func:`draw_aug`)."""
     images = images.float().contiguous()
     if draws is None:
         draws = draw_aug(generator, policy, images.shape[0])
     sy, sx = aug_coords(draws, policy)
+    cubic = policy.image_interp == "cubic"
     if warp_backend == "kernel":
-        img, lab = warp_bilinear_nearest(images, labels.to(torch.int32).contiguous(),
-                                         sy.contiguous(), sx.contiguous())
+        warp = warp_cubic_nearest if cubic else warp_bilinear_nearest
+        img, lab = warp(images, labels.to(torch.int32).contiguous(), sy.contiguous(),
+                        sx.contiguous())
     elif warp_backend == "gather":
-        img = sample_bilinear(images, sy, sx)
+        img = map_coordinates_cubic(images, sy, sx) if cubic else sample_bilinear(images, sy, sx)
         lab = sample_nearest(labels.float(), sy, sx).to(torch.int32)
     else:
         raise ValueError(warp_backend)

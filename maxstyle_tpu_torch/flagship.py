@@ -1,20 +1,33 @@
-"""The port's entry point: the headline MaxStyle training workload.
+"""The port's entry points: MaxStyle training workloads built from a config.
 
 Counterpart of ``__graft_entry__._flagship_solver`` and
-``bench.measure_throughput`` of the JAX package, with the same workload and
-constants: the reference's headline configuration
-(configs/ACDC/1500_epoch/MICCAI2022_MaxStyle.json) — FCN_16_standard_no_STN,
-effective batch 20 (10 augmented + 10 original slices), 224^2 padded slices
-cropped to 192^2 with policy ACDC_affine_elastic_intensity, AdamW 1e-4, and
-the MaxStyle inner loop Adam(0.1) x 5 at decoder hooks (3, 4, 5).
+``bench.measure_throughput`` of the JAX package.
 
-Both functions run on the GPU unless the caller passes ``device="cpu"``;
-without a GPU and without that request they raise.
+* :func:`config_solver` builds the solver of any :class:`ExperimentConfig`;
+  :func:`load_config` reads a file under ``configs/`` with an optional
+  ``image_interp`` override, the knob that the JAX package's ``train.py``
+  reads (``data.image_interp``).
+* :func:`flagship_solver` is the headline configuration
+  (configs/ACDC/1500_epoch/MICCAI2022_MaxStyle.json): FCN_16_standard_no_STN,
+  effective batch 20 (10 augmented + 10 original slices), 224^2 padded
+  slices cropped to 192^2 with policy ACDC_affine_elastic_intensity, AdamW
+  1e-4, and the MaxStyle inner loop Adam(0.1) x 5 at decoder hooks (3, 4, 5).
+* :func:`prostate_cubic_solver` is configs/Prostate/MICCAI2022_MaxStyle.json
+  with ``image_interp="cubic"``: 288^2 pads cropped to 224^2, 2 classes,
+  policy Prostate_affine_elastic_intensity, the order-3 spline warp.
+* :func:`measure_throughput` times ``make_multi_step`` on synthetic raw
+  slices, with the policy, sizes and class count of the solver's config.
+
+Every entry point runs on the GPU unless the caller passes ``device="cpu"``;
+without a GPU and without that request it raises.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import time
+from pathlib import Path
+from typing import Optional
 
 import torch
 
@@ -23,6 +36,9 @@ from maxstyle_tpu_torch.config import (DataConfig, ExperimentConfig, LearningCon
 from maxstyle_tpu_torch.data import augment as A
 from maxstyle_tpu_torch.solver import TripletSegmentationSolver, resolve_device
 from maxstyle_tpu_torch.train_step import make_multi_step
+
+CONFIGS = Path(__file__).resolve().parent.parent / "configs"
+PROSTATE_MAXSTYLE = CONFIGS / "Prostate" / "MICCAI2022_MaxStyle.json"
 
 
 def set_float32_policy(device: torch.device) -> None:
@@ -35,11 +51,25 @@ def set_float32_policy(device: torch.device) -> None:
         torch.backends.cuda.matmul.allow_tf32 = False
 
 
+def load_config(path, image_interp: Optional[str] = None) -> ExperimentConfig:
+    """A config file, with ``data.image_interp`` replaced when given."""
+    cfg = ExperimentConfig.from_json(str(path))
+    if image_interp is not None:
+        cfg = dataclasses.replace(cfg, data=dataclasses.replace(cfg.data,
+                                                                image_interp=image_interp))
+    return cfg
+
+
+def config_solver(cfg: ExperimentConfig, device=None) -> TripletSegmentationSolver:
+    """The solver of ``cfg`` on ``device`` (the GPU by default)."""
+    dev = resolve_device(device)
+    set_float32_policy(dev)
+    return TripletSegmentationSolver(cfg, device=dev)
+
+
 def flagship_solver(hw: int = 192, batch: int = 20, max_style: bool = True,
                     style_group_size=None, device=None) -> TripletSegmentationSolver:
     """The headline MaxStyle solver (effective batch ``batch``, crops ``hw``)."""
-    dev = resolve_device(device)
-    set_float32_policy(dev)
     cfg = ExperimentConfig(
         data=DataConfig(crop_size=(hw, hw, 1), num_classes=4),
         segmentation_model=SegmentationModelConfig(
@@ -49,33 +79,51 @@ def flagship_solver(hw: int = 192, batch: int = 20, max_style: bool = True,
         max_style=MaxStyleConfig(n_iter=5, decoder_layers_indexes=(3, 4, 5),
                                  style_group_size=style_group_size),
     )
-    return TripletSegmentationSolver(cfg, device=dev)
+    return config_solver(cfg, device)
+
+
+def prostate_cubic_solver(device=None) -> TripletSegmentationSolver:
+    """The Prostate MaxStyle solver with the cubic image warp."""
+    return config_solver(load_config(PROSTATE_MAXSTYLE, image_interp="cubic"), device)
 
 
 def make_raw_batches(k_inner: int, half_batch: int, pad: int, seed: int,
-                     device) -> dict:
+                     device, num_classes: int = 4) -> dict:
     """Synthetic raw slices made on the device from ``seed``: images
-    clip(0.5 + 0.25 N(0,1), 0, 1), labels uniform in {0..3} (int32)."""
+    clip(0.5 + 0.25 N(0,1), 0, 1), labels uniform in {0..num_classes-1}
+    (int32)."""
     g = torch.Generator(device=device).manual_seed(seed)
     shape = (k_inner, half_batch, pad, pad)
     image = torch.clamp(0.5 + 0.25 * torch.randn(shape, generator=g, device=device), 0, 1)
-    label = torch.randint(0, 4, shape, generator=g, device=device, dtype=torch.int32)
+    label = torch.randint(0, num_classes, shape, generator=g, device=device, dtype=torch.int32)
     return {"image": image, "label": label}
 
 
-def measure_throughput(solver: TripletSegmentationSolver, half_batch: int = 10,
-                       pad: int = 224, crop: int = 192, k_inner: int = 16,
+def workload_policy(cfg: ExperimentConfig) -> A.AugPolicy:
+    """The augmentation policy of ``cfg``: its policy name, pad and crop
+    sizes and image interpolation."""
+    d = cfg.data
+    return A.get_policy(d.data_aug_policy, tuple(d.pad_size[:2]), tuple(d.crop_size[:2]),
+                        image_interp=d.image_interp)
+
+
+def measure_throughput(solver: TripletSegmentationSolver, k_inner: int = 16,
                        n_calls: int = 2, n_repeats: int = 3, seed: int = 0):
-    """Median steps/s of the headline workload on ``solver``: one warm-up
-    call of ``make_multi_step`` (K = ``k_inner`` steps), then ``n_repeats``
-    timed rounds of ``n_calls`` calls, each bracketed by
-    ``torch.cuda.synchronize()``. Returns (steps/s, state, metrics of the
-    last call)."""
+    """Median steps/s of the solver's workload: one warm-up call of
+    ``make_multi_step`` (K = ``k_inner`` steps), then ``n_repeats`` timed
+    rounds of ``n_calls`` calls, each bracketed by
+    ``torch.cuda.synchronize()``. The policy, sizes, class count, loader
+    batch and the keep-original pairing come from the solver's config.
+    Returns (steps/s, state, metrics of the last call)."""
     dev = solver.device
-    policy = A.get_policy("ACDC_affine_elastic_intensity", (pad, pad), (crop, crop))
+    cfg = solver.config
+    policy = workload_policy(cfg)
     state = solver.init_state(seed)
-    raw = make_raw_batches(k_inner, half_batch, pad, seed + 1, dev)
-    multi = make_multi_step(solver, policy, keep_orig=True, n_inner=k_inner)
+    raw = make_raw_batches(k_inner, cfg.train_batch_size, policy.pad_hw[0], seed + 1, dev,
+                           num_classes=cfg.segmentation_model.num_classes)
+    multi = make_multi_step(solver, policy,
+                            keep_orig=cfg.data.keep_orig_image_label_pair_for_training,
+                            n_inner=k_inner)
     gen = torch.Generator(device=dev).manual_seed(seed + 10)
 
     def sync():

@@ -40,12 +40,15 @@ _SIGNATURES = {
     "ms_apply": ("maxstyle", (_P, _P, _P, _P, _I, _I, _P)),
     "ms_bwd": ("maxstyle", (_P, _P, _P, _P, _P, _I, _I, _I, _P)),
     "warp_bilinear_nearest": ("warp", (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P)),
+    "warp_cubic_nearest": ("warp_cubic", (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P)),
+    "conv3x3_bn_stats": ("conv_bn_stats", (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P)),
 }
 SOURCES = tuple(sorted({src for src, _ in _SIGNATURES.values()}))
 
 LAUNCHES: Dict[str, int] = {name: 0 for name in
                             ("maxstyle_stats", "maxstyle_apply", "maxstyle_bwd",
-                             "warp_bilinear_nearest")}
+                             "warp_bilinear_nearest", "warp_cubic_nearest",
+                             "conv3x3_bn_stats")}
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 BUILD_LOG: Dict[str, str] = {}

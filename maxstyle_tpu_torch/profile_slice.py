@@ -1,13 +1,16 @@
-"""Where the time of the headline training step goes, on the GPU.
+"""Where the time of a training step goes, on the GPU.
 
-    python3 -m maxstyle_tpu_torch.profile_slice [--k-inner 4] [--top 25]
+    python3 -m maxstyle_tpu_torch.profile_slice [--workload headline|prostate_cubic]
+                                                [--k-inner 4] [--top 25]
 
-Warms up one ``make_multi_step`` call of the flagship workload (effective
-batch 20 at 192^2, MaxStyle n_iter=5), then traces one more call with
-``torch.profiler`` and prints: the wall time of the traced call, the summed
-device time of all kernels and the device's busy share (device time over
-wall time), the device time per step of the port's four CUDA kernels, and
-the kernels with the most device time.
+Warms up one ``make_multi_step`` call of the workload (``headline``: the
+flagship, effective batch 20 at 192^2; ``prostate_cubic``: the Prostate
+MaxStyle config with the cubic warp, effective batch 20 at 224^2; both
+MaxStyle n_iter=5), then traces one more call with ``torch.profiler`` and
+prints: the wall time of the traced call, the summed device time of all
+kernels and the device's busy share (device time over wall time), the
+device time per step of the port's CUDA kernels, and the kernels with the
+most device time.
 """
 
 from __future__ import annotations
@@ -18,13 +21,16 @@ import time
 import torch
 from torch.profiler import ProfilerActivity, profile
 
-from maxstyle_tpu_torch.data import augment as A
-from maxstyle_tpu_torch.flagship import flagship_solver, make_raw_batches
+from maxstyle_tpu_torch.flagship import (flagship_solver, make_raw_batches,
+                                         prostate_cubic_solver, workload_policy)
 from maxstyle_tpu_torch.train_step import make_multi_step
 
 # symbol fragments of the port's kernels in the profiler's kernel names
 PORT_KERNELS = {name: f"{name}_kernel" for name in
-                ("maxstyle_stats", "maxstyle_apply", "maxstyle_bwd", "warp_bilinear_nearest")}
+                ("maxstyle_stats", "maxstyle_apply", "maxstyle_bwd", "warp_bilinear_nearest",
+                 "warp_cubic_nearest")}
+WORKLOADS = {"headline": lambda: flagship_solver(hw=192, batch=20, device="cuda"),
+             "prostate_cubic": lambda: prostate_cubic_solver(device="cuda")}
 
 
 def _device_us(evt) -> float:
@@ -36,15 +42,20 @@ def _device_us(evt) -> float:
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--workload", choices=sorted(WORKLOADS), default="headline")
     ap.add_argument("--k-inner", type=int, default=4)
     ap.add_argument("--top", type=int, default=25)
     args = ap.parse_args()
 
-    solver = flagship_solver(hw=192, batch=20, device="cuda")
+    solver = WORKLOADS[args.workload]()
+    cfg = solver.config
     state = solver.init_state(0)
-    policy = A.get_policy("ACDC_affine_elastic_intensity", (224, 224), (192, 192))
-    raw = make_raw_batches(args.k_inner, 10, 224, 1, solver.device)
-    multi = make_multi_step(solver, policy, keep_orig=True, n_inner=args.k_inner)
+    policy = workload_policy(cfg)
+    raw = make_raw_batches(args.k_inner, cfg.train_batch_size, policy.pad_hw[0], 1,
+                           solver.device, num_classes=cfg.segmentation_model.num_classes)
+    multi = make_multi_step(solver, policy,
+                            keep_orig=cfg.data.keep_orig_image_label_pair_for_training,
+                            n_inner=args.k_inner)
     gen = torch.Generator(device=solver.device).manual_seed(10)
     state, _ = multi(state, raw, gen)
     torch.cuda.synchronize()
@@ -61,7 +72,8 @@ def main() -> None:
                if e.device_type == torch.autograd.DeviceType.CUDA and _device_us(e) > 0]
     device_ms = sum(_device_us(e) for e in kernels) / 1e3
     steps = args.k_inner
-    print(f"profile: {torch.cuda.get_device_name(0)}; one call of {steps} steps")
+    print(f"profile: {args.workload} on {torch.cuda.get_device_name(0)}; "
+          f"one call of {steps} steps")
     if device_ms == 0.0:
         print("profile: the profiler reported no device time: not measured")
         return

@@ -137,12 +137,17 @@ def make_fused_train_step(solver: TripletSegmentationSolver, aug_policy: A.AugPo
     """Augmentation and training in one call: ``fused(state, raw,
     generator)`` takes RAW padded slices {"image": [N,H,W], "label":
     [N,H,W]}, augments them on their device, pairs them with the
-    center-cropped originals when ``keep_orig``, and trains one step."""
+    center-cropped originals when ``keep_orig``, and trains one step.
+    ``overrides`` pins the draws: "aug_draws" those of the augmentation (see
+    ``augment.draw_aug``), the rest those of ``make_train_step``'s step."""
     base_step = make_train_step(solver)
     crop_hw = aug_policy.crop_hw
 
-    def fused(state: TrainState, raw: Dict[str, torch.Tensor], generator: torch.Generator):
-        img, lab = A.augment_batch_inner(generator, raw["image"], raw["label"], aug_policy)
+    def fused(state: TrainState, raw: Dict[str, torch.Tensor], generator: torch.Generator,
+              overrides: Dict[str, Any] | None = None):
+        ov = dict(overrides or {})
+        img, lab = A.augment_batch_inner(generator, raw["image"], raw["label"], aug_policy,
+                                         draws=ov.pop("aug_draws", None))
         batch = {"image": img, "label": lab}
         if keep_orig:
             oi, ol = A.norm_batch(raw["image"], raw["label"], crop_hw)
@@ -160,7 +165,7 @@ def make_fused_train_step(solver: TripletSegmentationSolver, aug_policy: A.AugPo
             else:
                 batch = {"image": torch.cat([img, oi], 0),
                          "label": torch.cat([lab, ol], 0)}
-        return base_step(state, batch, generator)
+        return base_step(state, batch, generator, overrides=ov)
 
     return fused
 

@@ -12,7 +12,10 @@ to the port's deterministic functions, and compares:
 * intensity output: atol 1e-5 (min-max normalized to [0, 1]).
 * the whole batch augmentation against JAX's ``augment_batch_inner`` with
   the Pallas warp: image atol 1e-4; labels equal except where a coordinate
-  lies within 1e-4 pixels of a rounding boundary.
+  lies within 1e-4 pixels of a rounding boundary. With the cubic policy, the
+  port's two backends against JAX's two backends, at the same tolerances.
+* the bicubic resize against ``jax.image.resize``: atol 1e-6; the V2 and V1
+  bias fields, fed the control grids JAX drew from the same keys: atol 1e-5.
 """
 
 import jax
@@ -28,7 +31,8 @@ torch.set_num_threads(2)
 
 PAD, CROP = (40, 40), (32, 32)
 POLICIES = ["ACDC_affine_elastic_intensity", "Prostate_affine_elastic_intensity",
-            "affine_gamma_elastic", "no_aug"]
+            "affine_gamma_elastic", "no_aug", "ACDC_affine_elastic_bias", "ACDC_affine_all",
+            "ACDC_affine_perturb", "Atrial_perturb"]
 
 
 def jax_draws(keys, p: JA.AugPolicy):
@@ -42,6 +46,10 @@ def jax_draws(keys, p: JA.AugPolicy):
         kf1, kf2 = jax.random.split(ks[7])
         k_gate, k_c, k_b = jax.random.split(k[7], 3)
         k_g1, k_g2 = jax.random.split(jax.random.fold_in(key, 99))
+        k_bg, k_bf = jax.random.split(k[8])
+        k_vg, k_vf, k_vn = jax.random.split(jax.random.fold_in(key, 101), 3)
+        cps = p.perturb_v1_control_points
+        k_grids = jax.random.split(k_vf, len(cps))
         u = jax.random.uniform
         rows.append({
             "theta_deg": u(ks[0], minval=-p.rotate_deg, maxval=p.rotate_deg),
@@ -65,6 +73,11 @@ def jax_draws(keys, p: JA.AugPolicy):
             "brightness": u(k_b, minval=p.brightness_range[0], maxval=p.brightness_range[1]),
             "gamma_u": u(k_g1),
             "gamma": u(k_g2, minval=p.gamma_range[0], maxval=p.gamma_range[1]),
+            "bias_u": u(k_bg),
+            "bias_grid": u(k_bf, TA.bias_grid_hw((h, w)), minval=-1.0, maxval=1.0),
+            "v1_u": u(k_vg),
+            **{f"v1_grid{cp}": u(kg, (cp, cp)) for kg, cp in zip(k_grids, cps)},
+            "v1_noise": jax.random.normal(k_vn, (h, w)),
         })
     return {name: torch.from_numpy(np.stack([np.asarray(r[name]) for r in rows]))
             for name in rows[0]}
@@ -143,10 +156,68 @@ def test_policy_registry_matches_jax():
 
 
 def test_unported_branches_raise():
+    """Every branch of the JAX module is ported; what has no counterpart is
+    refused: the JAX backend name "pallas" (the port's is "kernel") and an
+    unknown interpolation."""
     p = TA.get_policy("ACDC_affine_elastic_bias", PAD, CROP)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError):
         TA.augment_batch_inner(torch.Generator(), torch.zeros(1, *PAD),
-                               torch.zeros(1, *PAD, dtype=torch.int32), p)
+                               torch.zeros(1, *PAD, dtype=torch.int32), p,
+                               warp_backend="pallas")
+    with pytest.raises(ValueError, match="image_interp"):
+        TA.get_policy("no_aug", PAD, CROP, image_interp="bicubic")
+
+
+@pytest.mark.parametrize("backend", ["kernel", "gather"])
+def test_cubic_batch_augmentation_matches_jax(backend):
+    name = "Prostate_affine_elastic_intensity"
+    jp = JA.get_policy(name, PAD, CROP, image_interp="cubic")
+    tp = TA.get_policy(name, PAD, CROP, image_interp="cubic")
+    rng = np.random.RandomState(3)
+    imgs = rng.rand(3, *PAD).astype(np.float32)
+    labs = rng.randint(0, 2, (3,) + PAD).astype(np.int32)
+    key = jax.random.key(12)
+    img_j, lab_j = JA.augment_batch_inner(key, jnp.asarray(imgs), jnp.asarray(labs), jp,
+                                          warp_backend="pallas" if backend == "kernel"
+                                          else "gather")
+    keys = jax.random.split(key, 3)
+    img_t, lab_t = TA.augment_batch_inner(None, torch.from_numpy(imgs), torch.from_numpy(labs),
+                                          tp, warp_backend=backend, draws=jax_draws(keys, jp))
+    assert img_t.shape == (3,) + CROP + (1,) and lab_t.dtype == torch.int32
+    np.testing.assert_allclose(img_t.numpy(), np.asarray(img_j), atol=1e-4)
+    sy, sx = jax.vmap(lambda k: JA._aug_coords(k, jp))(keys)
+    frac = np.concatenate([np.asarray(sy) % 1.0, np.asarray(sx) % 1.0])
+    near = np.abs(frac - 0.5) < 1e-4
+    safe = ~(near[:3] | near[3:])
+    np.testing.assert_array_equal(lab_t.numpy()[safe], np.asarray(lab_j)[safe])
+
+
+@pytest.mark.parametrize("src,dst", [((2, 2), (32, 32)), ((4, 4), (32, 32)),
+                                     ((8, 8), (192, 192)), ((6, 6), (192, 192)),
+                                     ((7, 7), (224, 224))])
+def test_resize_bicubic_matches_jax(src, dst):
+    grid = np.random.RandomState(src[0]).rand(2, *src).astype(np.float32) * 2 - 1
+    want = np.stack([np.asarray(jax.image.resize(jnp.asarray(g), dst, method="bicubic"))
+                     for g in grid])
+    got = TA.resize_bicubic(torch.from_numpy(grid), dst)
+    np.testing.assert_allclose(got.numpy(), want, atol=1e-6)
+
+
+def test_bias_fields_match_jax():
+    hw, cps = (32, 32), (2, 4, 8)
+    keys = keys_for(5, 3)
+    want_v2 = np.stack([np.asarray(JA._bias_field(k, hw, 0.2)) for k in keys])
+    grids = torch.from_numpy(np.stack([np.asarray(jax.random.uniform(
+        k, TA.bias_grid_hw(hw), minval=-1.0, maxval=1.0)) for k in keys]))
+    np.testing.assert_allclose(TA.bias_field(grids, hw, 0.2).numpy(), want_v2, atol=1e-5)
+
+    want_v1 = np.stack([np.asarray(JA._multiscale_bias_field(k, hw, cps, 16.0, 0.3))
+                        for k in keys])
+    per_scale = [[np.asarray(jax.random.uniform(kg, (cp, cp)))
+                  for kg, cp in zip(jax.random.split(k, len(cps)), cps)] for k in keys]
+    v1_grids = [torch.from_numpy(np.stack([s[i] for s in per_scale])) for i in range(len(cps))]
+    got = TA.multiscale_bias_field(v1_grids, hw, cps, 16.0, 0.3)
+    np.testing.assert_allclose(got.numpy(), want_v1, atol=1e-5)
 
 
 def test_generator_draws_are_distributed_like_the_policy():
@@ -159,3 +230,20 @@ def test_generator_draws_are_distributed_like_the_policy():
     assert abs(float((d["elastic_u"] < 0.5).float().mean()) - 0.5) < 0.05
     assert 1.5 * PAD[0] <= float(d["alpha"].min()) and float(d["alpha"].max()) <= 2.0 * PAD[0]
     assert tuple(d["elastic_noise"].shape) == (4000, 2) + PAD
+    assert "bias_u" not in d and "v1_u" not in d
+
+
+def test_optional_branches_draw_after_the_common_stream():
+    """The bias-field and V1 draws come after every other draw, so a policy
+    without them draws the same numbers as before, and one with them draws
+    the same common numbers."""
+    base = TA.get_policy("ACDC_affine_elastic_intensity", PAD, CROP)
+    both = TA.get_policy("ACDC_affine_all", PAD, CROP)
+    both = __import__("dataclasses").replace(both, perturb_v1_prob=0.5)
+    d0 = TA.draw_aug(torch.Generator().manual_seed(1), base, 5)
+    d1 = TA.draw_aug(torch.Generator().manual_seed(1), both, 5)
+    for key, val in d0.items():
+        torch.testing.assert_close(d1[key], val, rtol=0, atol=0)
+    assert tuple(d1["bias_grid"].shape) == (5, 2, 2)
+    assert tuple(d1["v1_grid8"].shape) == (5, 8, 8) and tuple(d1["v1_noise"].shape) == (5,) + CROP
+    assert float(d1["bias_grid"].min()) >= -1.0 and float(d1["v1_grid4"].max()) < 1.0

@@ -59,3 +59,29 @@ def test_kernel_wrappers_take_the_plain_path_only_for_cpu_tensors():
             call()
     cpu = torch.randn(2, 3, 4, 4)
     torch.testing.assert_close(mk.channel_sums(cpu), mk.channel_sums_plain(cpu))
+
+
+def test_slice_two_modules_are_walked_and_their_wrappers_refuse_meta_tensors():
+    import pkgutil
+
+    import maxstyle_tpu_torch
+    from maxstyle_tpu_torch import kernels
+    from maxstyle_tpu_torch import proto_conv_bn_fusion as P
+    from maxstyle_tpu_torch.ops import warp_kernels as wk
+    names = {m.name for m in pkgutil.walk_packages(maxstyle_tpu_torch.__path__,
+                                                   "maxstyle_tpu_torch.")}
+    assert {"maxstyle_tpu_torch.ops.spline", "maxstyle_tpu_torch.proto_conv_bn_fusion",
+            "maxstyle_tpu_torch.timing"} <= names
+    assert {"warp_cubic", "conv_bn_stats"} <= set(kernels.SOURCES)
+    assert {"warp_cubic_nearest", "conv3x3_bn_stats"} <= set(kernels.LAUNCHES)
+    img = torch.empty((1, 6, 6), device="meta")
+    lab = torch.empty((1, 6, 6), device="meta", dtype=torch.int32)
+    crd = torch.empty((1, 4, 4), device="meta")
+    for call in (lambda: wk.warp_cubic_nearest(img, lab, crd, crd),
+                 lambda: wk.sample_cubic_nearest(img, lab, crd, crd),
+                 lambda: P.conv3x3_bn_stats(torch.empty((1, 2, 4, 4), device="meta"),
+                                            torch.empty((2, 2, 3, 3), device="meta"),
+                                            torch.empty((2,), device="meta"))):
+        with pytest.raises(ValueError):
+            call()
+    assert all(n == 0 for n in kernels.LAUNCHES.values())

@@ -6,6 +6,12 @@ wrapper runs on CPU tensors) is held against the JAX
 labels exactly equal (both round half up). The gather path of the port's
 augment module is held against the JAX gather path (``_sample_bilinear`` /
 ``_sample_nearest``, labels rounding half to even) at the same tolerances.
+
+The cubic warp's plain version (prefilter in matrix form, then the 16-tap
+sampler in the CUDA kernel's order) is held against the JAX
+``warp_cubic_nearest`` Pallas kernel in interpret mode and against JAX's
+``map_coordinates_cubic``: image atol 2e-5 (tests/test_warp_pallas.py),
+labels exactly equal.
 """
 
 import jax.numpy as jnp
@@ -14,7 +20,9 @@ import pytest
 import torch
 
 from maxstyle_tpu.data import augment as JA
+from maxstyle_tpu.ops.spline import map_coordinates_cubic as jax_map_cubic
 from maxstyle_tpu.ops.warp_pallas import warp_bilinear_nearest as jax_warp
+from maxstyle_tpu.ops.warp_pallas import warp_cubic_nearest as jax_warp_cubic
 from maxstyle_tpu_torch.data import augment as TA
 from maxstyle_tpu_torch.ops import warp_kernels as wk
 
@@ -84,6 +92,40 @@ def test_half_pixel_rounding_differs_as_documented():
     assert int(up) == 1 * 4 + 2 and int(even) == 0 * 4 + 2
 
 
+CUBIC_CASES = {
+    # N=3, 40^2 -> 32^2 reaching 3 pixels outside, and the identity warp
+    "outside": (3, 40, (32, 32), 5, 3.0),
+    "inside": (2, 24, (20, 20), 6, 0.0),
+}
+
+
+@pytest.mark.parametrize("name", sorted(CUBIC_CASES))
+def test_plain_cubic_warp_matches_pallas_kernel(name):
+    n, src, out_hw, seed, margin = CUBIC_CASES[name]
+    img, lab, sy, sx = make_case(n, src, out_hw, seed, margin)
+    ji, jl = jax_warp_cubic(jnp.asarray(img), jnp.asarray(lab), jnp.asarray(sy),
+                            jnp.asarray(sx), out_hw, interpret=True)
+    ti, tl = wk.warp_cubic_nearest(*map(torch.from_numpy, (img, lab, sy, sx)))
+    assert ti.shape == (n,) + out_hw and tl.dtype == torch.int32
+    np.testing.assert_allclose(ti.numpy(), np.asarray(ji), atol=2e-5)
+    np.testing.assert_array_equal(tl.numpy(), np.asarray(jl))
+
+
+def test_plain_cubic_warp_identity_and_jax_spline():
+    n, src = 3, 40
+    img, lab, _, _ = make_case(n, src, (src, src), 7, 0.0)
+    yy, xx = np.mgrid[0:src, 0:src].astype(np.float32)
+    sy, sx = np.broadcast_to(yy, (n, src, src)).copy(), np.broadcast_to(xx, (n, src, src)).copy()
+    ti, tl = wk.warp_cubic_nearest_plain(*map(torch.from_numpy, (img, lab, sy, sx)))
+    np.testing.assert_allclose(ti.numpy(), img, atol=2e-5)
+    np.testing.assert_array_equal(tl.numpy(), lab)
+    img, lab, sy, sx = make_case(n, src, (32, 32), 8, 3.0)
+    import jax
+    want = jax.vmap(jax_map_cubic)(jnp.asarray(img), jnp.asarray(sy), jnp.asarray(sx))
+    ti, _ = wk.warp_cubic_nearest_plain(*map(torch.from_numpy, (img, lab, sy, sx)))
+    np.testing.assert_allclose(ti.numpy(), np.asarray(want), atol=2e-5)
+
+
 def test_wrapper_refuses_non_cpu_tensors_without_plain_fallback():
     """Only CPU tensors take the plain version; any other device goes to the
     kernel path, which checks its inputs and raises rather than falling back."""
@@ -92,3 +134,5 @@ def test_wrapper_refuses_non_cpu_tensors_without_plain_fallback():
             torch.empty((1, 2, 2), device="meta"), torch.empty((1, 2, 2), device="meta")]
     with pytest.raises(ValueError):
         wk.warp_bilinear_nearest(*meta)
+    with pytest.raises(ValueError):
+        wk.warp_cubic_nearest(*meta)
