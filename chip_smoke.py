@@ -14,7 +14,8 @@ Phases, each printing its own lines; any failure exits nonzero:
              MaxStyle kernels at the hook shapes of both training cells,
              the bilinear warp (N=10, 224 -> 192), the spline prefilter's
              matrix form against its recursion and the cubic warp (N=10,
-             288 -> 224), and conv3x3_bn_stats at its bench's three shapes;
+             288 -> 224), and conv3x3_bn_stats at its bench's three shapes
+             (timed) and at ragged shapes that reach every masked edge;
 4. reference — on a small input, the MaxStyle generation through the
              kernels against the plain autograd op, and the stylized and
              predicted outputs finite and of the expected shape;
@@ -41,6 +42,7 @@ from __future__ import annotations
 
 import json
 import math
+import re
 import sys
 import time
 
@@ -101,15 +103,47 @@ def phase_device():
     return name, smi
 
 
+def _ptxas_report(log: str):
+    """(kernel, registers line, spills line) for each entry function in an
+    nvcc -Xptxas -v log; a conv kernel is named by its Cfg<N, MT, WG>."""
+    out, name, spills = [], "?", ""
+    for ln in log.splitlines():
+        if "Compiling entry function" in ln:
+            cfg = re.search(r"CfgILi(\d+)ELi(\d+)ELi(\d+)E", ln)
+            kern = re.search(r"(\w+?_kernel)", ln)
+            name = (f"Cfg<{', '.join(cfg.groups())}>" if cfg else
+                    re.sub(r"^_Z\d+", "", kern.group(1)) if kern else ln.split("'")[1][:40])
+        elif "spill" in ln:
+            spills = ln.strip()
+        elif "Used" in ln and "registers" in ln:
+            out.append((name, ln.split(":", 1)[1].strip(), spills))
+    return out
+
+
 def phase_build():
     from maxstyle_tpu_torch import kernels
     t0 = time.perf_counter()
     secs = kernels.build_all()
     for src, log in kernels.BUILD_LOG.items():
-        regs = [ln.strip() for ln in log.splitlines() if "registers" in ln]
-        print(f"build {src}.cu: {'; '.join(regs)}")
+        for name, regs, spills in _ptxas_report(log):
+            print(f"build {src}.cu {name}: {regs}; {spills}")
     print(f"build: {len(kernels.SOURCES)} sources in {secs:.2f} s "
           f"(phase {time.perf_counter() - t0:.2f} s)")
+
+
+def _roof(nbytes, ops):
+    """bound_ms and bound_by of float32 work: bytes over the memory rate or
+    operations over the float32 rate, whichever is larger."""
+    from maxstyle_tpu_torch.timing import bound_by, bound_ms
+    return {"bound_ms": bound_ms(nbytes, ops), "bound_by": bound_by(nbytes, ops)}
+
+
+def _row_bound_by(shapes):
+    """The term that sets most of a row's summed bound."""
+    share = {}
+    for s in shapes:
+        share[s["bound_by"]] = share.get(s["bound_by"], 0.0) + s["bound_ms"]
+    return max(share, key=share.get)
 
 
 def _style_rows(rows, cell, shapes):
@@ -117,7 +151,7 @@ def _style_rows(rows, cell, shapes):
     hook shapes; returns whether all agree."""
     import torch
     from maxstyle_tpu_torch.ops import maxstyle_kernels as mk
-    from maxstyle_tpu_torch.timing import bound_ms, copies_beyond_l2, cuda_ms
+    from maxstyle_tpu_torch.timing import copies_beyond_l2, cuda_ms
 
     def norm_err(k, p, ref_abs):
         return float(((k - p).abs() / ref_abs.clamp_min(1e-30)).max())
@@ -143,7 +177,7 @@ def _style_rows(rows, cell, shapes):
             tol=1e-5, ms=cuda_ms(lambda i: mk.channel_sums(xs[i]), copies),
             plain_ms=cuda_ms(lambda i: mk.channel_sums_plain(xs[i]), copies),
             library_ms=cuda_ms(lambda i: torch.var_mean(xs[i], dim=(2, 3)), copies),
-            bound_ms=bound_ms(n_el * 4 + b * 2 * c * 4, 3 * n_el)))
+            **_roof(n_el * 4 + b * 2 * c * 4, 3 * n_el)))
         ok &= err <= 1e-5
 
         # apply: out = x * scale + shift; tolerance 1e-6 of max|out|
@@ -155,7 +189,7 @@ def _style_rows(rows, cell, shapes):
             tol=1e-6, ms=cuda_ms(lambda i: mk.plane_affine(xs[i], scale, shift), copies),
             plain_ms=cuda_ms(lambda i: mk.plane_affine_plain(xs[i], scale, shift), copies),
             library_ms=cuda_ms(lambda i: torch.addcmul(t4, xs[i], s4), copies),
-            bound_ms=bound_ms(2 * n_el * 4 + 2 * b * c * 4, 2 * n_el)))
+            **_roof(2 * n_el * 4 + 2 * b * c * 4, 2 * n_el)))
         ok &= err <= 1e-6
 
         # bwd: dx = g * scale (exact), sums of g and g*x (1e-5 of sum|terms|)
@@ -169,7 +203,7 @@ def _style_rows(rows, cell, shapes):
             ms=cuda_ms(lambda i: mk.plane_affine_bwd(gs[i], xs[i], scale), copies),
             plain_ms=cuda_ms(lambda i: mk.plane_affine_bwd_plain(gs[i], xs[i], scale), copies),
             library_ms=None,
-            bound_ms=bound_ms(3 * n_el * 4 + 3 * b * c * 4, 4 * n_el)))
+            **_roof(3 * n_el * 4 + 3 * b * c * 4, 4 * n_el)))
         ok &= err <= 1e-5
         del xs, gs
     return ok
@@ -202,7 +236,7 @@ def _warp_rows(rows):
     prefilter's matrix form against its recursion at atol 1e-5."""
     from maxstyle_tpu_torch.ops import spline
     from maxstyle_tpu_torch.ops import warp_kernels as wk
-    from maxstyle_tpu_torch.timing import bound_ms, copies_beyond_l2, cuda_ms
+    from maxstyle_tpu_torch.timing import copies_beyond_l2, cuda_ms
 
     def mismatch(kernel, plain, images, case):
         """(largest image difference, label mismatches) over both coordinate
@@ -227,7 +261,7 @@ def _warp_rows(rows):
         case = _warp_case(shape, policy, 7, copies)
         labs, crd = case["lab"], case["policy"]
         row = dict(shape=[n, H, H, h, h], tol=0.0, library_ms=None,
-                   bound_ms=bound_ms(n * H * H * 8 + px * 8 + px * 8, ops * px))
+                   **_roof(n * H * H * 8 + px * 8 + px * 8, ops * px))
         if name == "warp_bilinear_nearest":
             imgs = case["img"]
             img_err, lab_err = mismatch(wk.warp_bilinear_nearest, wk.warp_bilinear_nearest_plain,
@@ -263,8 +297,12 @@ def _warp_rows(rows):
 
 
 def _conv_rows(rows):
-    """conv3x3_bn_stats against its plain version at the bench's shapes,
-    with the prototype's check() tolerances."""
+    """conv3x3_bn_stats against its plain version with the prototype's
+    check() tolerances: timed at the bench's shapes, and checked at ragged
+    shapes (channels off the 8-channel chunk, Cout above one block's
+    channels, sides off the tile, rows the tensor map cannot describe).
+    The bound is the tensor cores' (three TF32 products); the float32 bound
+    of the CUDA cores stays beside it as ffma_bound_ms."""
     import torch.nn.functional as F
     from maxstyle_tpu_torch import proto_conv_bn_fusion as P
     from maxstyle_tpu_torch.timing import bound_ms, copies_beyond_l2, cuda_ms
@@ -275,6 +313,7 @@ def _conv_rows(rows):
         copies = copies_beyond_l2(4 * bsz * c * hw * hw)
         xs, w, b = P.make_case(shape, i, "cuda", copies)
         res = P.compare(P.conv3x3_bn_stats(xs[0], w, b), P.conv3x3_bn_stats_plain(xs[0], w, b))
+        bound, bound_by = P.bound(shape)
         rows["conv3x3_bn_stats"]["shapes"].append(dict(
             cell="conv_bn_fusion", shape=list(shape), max_abs_err=res["max_abs_err"],
             rel_err=res["worst"], tol=1.0, errors_in_tolerances=res,
@@ -282,9 +321,19 @@ def _conv_rows(rows):
             plain_ms=cuda_ms(lambda k: P.conv3x3_bn_stats_plain(xs[k], w, b), copies),
             library_ms=cuda_ms(lambda k: P.conv_stats_library(xs[k], w, b), copies),
             cudnn_conv_ms=cuda_ms(lambda k: F.conv2d(xs[k], w, b, padding=1), copies),
-            bound_ms=bound_ms(*P.work(shape))))
+            bound_ms=bound, bound_by=bound_by,
+            ffma_bound_ms=bound_ms(*P.work(shape))))
         ok &= res["worst"] <= 1.0
         del xs
+    checks = rows["conv3x3_bn_stats"]["ragged_checks"] = []
+    for i, shape in enumerate(P.RAGGED_SHAPES):
+        (x,), w, b = P.make_case(shape, 10 + i, "cuda")
+        res = P.compare(P.conv3x3_bn_stats(x, w, b), P.conv3x3_bn_stats_plain(x, w, b))
+        checks.append(dict(shape=list(shape), max_abs_err=res["max_abs_err"], rel_err=res["worst"],
+                           tol=1.0, errors_in_tolerances=res))
+        print(f"kernel conv3x3_bn_stats ragged (B, Cin, Cout, H, W) {list(shape)}: "
+              f"worst {res['worst']:.3e} of the tolerances (tol 1.0)")
+        ok &= res["worst"] <= 1.0
     return ok
 
 
@@ -300,12 +349,13 @@ def phase_kernels():
     for row in rows.values():
         for s in row["shapes"]:
             extra = "".join(f" {k} {s[k]:.5f}" for k in
-                            ("uniform_coords_ms", "prefilter_ms", "cudnn_conv_ms") if k in s)
+                            ("uniform_coords_ms", "prefilter_ms", "cudnn_conv_ms",
+                             "ffma_bound_ms") if k in s)
             print(f"kernel {row['name']} {s['cell']} {s['shape']}: "
                   f"max abs err {s['max_abs_err']:.3e}, "
                   f"checked err {s.get('rel_err', s['max_abs_err']):.3e} (tol {s['tol']}) "
                   f"ms {s['ms']:.5f} plain {s['plain_ms']:.5f} "
-                  f"library {s['library_ms']} bound {s['bound_ms']:.5f}{extra}")
+                  f"library {s['library_ms']} bound {s['bound_ms']:.5f} ({s['bound_by']}){extra}")
     print(f"kernel warp_cubic_nearest prefilter: matrix vs recursion max err "
           f"{rows['warp_cubic_nearest']['shapes'][0]['prefilter_matrix_vs_loop_err']:.3e} "
           f"(tol 1e-5)")
@@ -458,8 +508,7 @@ def main():
                     "launches_by_path": {p: n[kname] for p, n in paths.items()},
                     "max_abs_err": max(s["max_abs_err"] for s in shapes),
                     "ms": total("ms"), "plain_ms": total("plain_ms"),
-                    "bound_ms": total("bound_ms"),
-                    "bound_by": "operations" if kname == "conv3x3_bn_stats" else "bytes",
+                    "bound_ms": total("bound_ms"), "bound_by": _row_bound_by(main),
                     "library_ms": total("library_ms"), "shapes": shapes})
     print(json.dumps({"kernels": out}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

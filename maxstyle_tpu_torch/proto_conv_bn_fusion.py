@@ -17,9 +17,10 @@ pass. The bench measures, at the encoder's hot shapes (B=20: 192^2 x 16,
 
 and prints one JSON row per shape, after one line with the card's name and
 power limit. ``--check`` holds the kernel against
-:func:`conv3x3_bn_stats_plain` at those shapes with the prototype's
-tolerances and exits nonzero if they disagree. Float32 throughout, TF32
-off. Without a GPU both raise.
+:func:`conv3x3_bn_stats_plain` at those shapes and at ``RAGGED_SHAPES``
+with the prototype's tolerances and exits nonzero if they disagree.
+Float32 throughout, TF32 off in the library arms (the kernel's split-TF32
+products are float32-accurate). Without a GPU both raise.
 """
 
 from __future__ import annotations
@@ -34,11 +35,21 @@ import torch.nn.functional as F
 
 from maxstyle_tpu_torch import kernels
 from maxstyle_tpu_torch.flagship import set_float32_policy
-from maxstyle_tpu_torch.timing import bound_ms, card, copies_beyond_l2, cuda_ms
+from maxstyle_tpu_torch.timing import (TF32_OPS_PER_S, bound_by, bound_ms, card,
+                                       copies_beyond_l2, cuda_ms)
 
 SHAPES = ((20, 192, 16), (20, 96, 32), (20, 48, 64))   # (B, H = W, Cin = Cout)
+# (B, Cin, Cout, H, W) that reach every masked edge of the kernel: channels
+# off the 8-channel chunk, Cout above one block's 32 channels, sides off the
+# tile, widths staged by TMA boxes (W % 4 == 0) and by 4-byte copies, and
+# 72 input channels, whose weights leave room for 16-channel groups only
+RAGGED_SHAPES = ((3, 5, 7, 19, 23), (2, 24, 80, 50, 37), (2, 12, 40, 20, 36),
+                 (1, 72, 96, 24, 40))
 # the prototype's check() tolerances (rtol, atol)
 TOLERANCES = {"y": (1e-5, 1e-5), "mean": (1e-5, 1e-6), "var": (1e-4, 1e-5)}
+# the kernel keeps a channel group's split weights in shared memory: at
+# least 16 channels of 9 taps x Cin, hi and lo, within 150 KiB
+MAX_CIN = 128
 
 Result = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
 
@@ -74,6 +85,9 @@ def conv3x3_bn_stats(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> Resul
     cout = w.shape[0]
     if tuple(w.shape) != (cout, cin, 3, 3) or tuple(b.shape) != (cout,):
         raise ValueError("conv3x3_bn_stats: w must be [Cout, Cin, 3, 3] and b [Cout]")
+    if min(bsz, cin, cout, h, wd) == 0 or cin > MAX_CIN:
+        raise ValueError(f"conv3x3_bn_stats: the kernel takes no empty dimension and at most "
+                         f"{MAX_CIN} input channels, got x {tuple(x.shape)}, w {tuple(w.shape)}")
     y = torch.empty((bsz, cout, h, wd), device=x.device, dtype=torch.float32)
     sums = torch.zeros((2, cout), device=x.device, dtype=torch.float64)
     kernels.launch("conv3x3_bn_stats", x, w, b, y, sums, bsz, cin, cout, h, wd)
@@ -89,14 +103,16 @@ def conv_stats_library(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> Res
     return y, mean, var
 
 
-def make_case(shape: Tuple[int, int, int], seed: int, device, copies: int = 1):
-    """The prototype's inputs: x ~ U[0, 1) [B,C,H,W] (``copies`` of them),
-    w ~ 0.1 N(0, 1), b ~ 0.1 N(0, 1)."""
-    bsz, hw, c = shape
+def make_case(shape: Tuple[int, ...], seed: int, device, copies: int = 1):
+    """The prototype's inputs: x ~ U[0, 1) [B,Cin,H,W] (``copies`` of them),
+    w ~ 0.1 N(0, 1), b ~ 0.1 N(0, 1). ``shape`` is (B, H = W, Cin = Cout) or
+    (B, Cin, Cout, H, W)."""
+    bsz, cin, cout, h, wd = shape if len(shape) == 5 else (
+        shape[0], shape[2], shape[2], shape[1], shape[1])
     g = torch.Generator(device=device).manual_seed(seed)
-    xs = [torch.rand((bsz, c, hw, hw), generator=g, device=device) for _ in range(copies)]
-    w = 0.1 * torch.randn((c, c, 3, 3), generator=g, device=device)
-    b = 0.1 * torch.randn((c,), generator=g, device=device)
+    xs = [torch.rand((bsz, cin, h, wd), generator=g, device=device) for _ in range(copies)]
+    w = 0.1 * torch.randn((cout, cin, 3, 3), generator=g, device=device)
+    b = 0.1 * torch.randn((cout,), generator=g, device=device)
     return xs, w, b
 
 
@@ -108,6 +124,18 @@ def work(shape: Tuple[int, int, int]) -> Tuple[float, float]:
     n = bsz * hw * hw
     nbytes = 4 * (2 * n * c + 9 * c * c + c + 2 * c)
     return nbytes, 2 * 9 * c * c * n + 3 * n * c
+
+
+def bound(shape: Tuple[int, int, int]) -> Tuple[float, str]:
+    """The kernel's least time in ms and which term sets it: the bytes of
+    :func:`work` over the memory rate, or the convolution's products over
+    the tensor cores' TF32 rate, three times over, since a float32-accurate
+    product takes three TF32 ones (lo*hi + hi*lo + hi*hi)."""
+    nbytes, _ = work(shape)
+    bsz, hw, c = shape
+    products = 3 * 2 * 9 * c * c * bsz * hw * hw
+    return (bound_ms(nbytes, products, TF32_OPS_PER_S),
+            bound_by(nbytes, products, TF32_OPS_PER_S))
 
 
 def compare(got: Result, want: Result) -> Dict[str, float]:
@@ -123,7 +151,7 @@ def compare(got: Result, want: Result) -> Dict[str, float]:
     return out
 
 
-def check(shapes=SHAPES, device="cuda") -> List[dict]:
+def check(shapes=SHAPES + RAGGED_SHAPES, device="cuda") -> List[dict]:
     """The kernel against its plain version at each shape."""
     set_float32_policy(torch.device(device))
     rows = []
@@ -147,13 +175,15 @@ def bench(shapes=SHAPES, device="cuda") -> List[dict]:
         t_stats = cuda_ms(lambda k: conv_stats_library(xs[k], w, b), copies)
         t_fused = cuda_ms(lambda k: conv3x3_bn_stats(xs[k], w, b), copies)
         t_plain = cuda_ms(lambda k: conv3x3_bn_stats_plain(xs[k], w, b), copies)
+        t_bound, bound_term = bound(shape)
         rows.append({
             "shape": f"B{bsz} {hw}x{hw} C{c}",
             "cudnn_conv_ms": t_conv, "cudnn_conv_stats_ms": t_stats,
             "stat_pass_cost_ms": t_stats - t_conv,
             "stat_pass_pct_of_conv": 100 * (t_stats - t_conv) / max(t_conv, 1e-9),
             "fused_ms": t_fused, "fused_vs_cudnn_stats": t_fused / t_stats,
-            "plain_ms": t_plain, "bound_ms": bound_ms(*work(shape)),
+            "plain_ms": t_plain, "bound_ms": t_bound, "bound_by": bound_term,
+            "ffma_bound_ms": bound_ms(*work(shape)),
         })
         del xs
     return rows

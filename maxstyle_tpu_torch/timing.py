@@ -11,12 +11,19 @@ import torch
 
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory (NVIDIA data sheet)
 FP32_OPS_PER_S = 67e12      # H100 SXM float32 outside the tensor cores
+TF32_OPS_PER_S = 495e12     # H100 SXM TF32 on the tensor cores, dense
 
 
-def bound_ms(nbytes: float, ops: float) -> float:
+def bound_ms(nbytes: float, ops: float, ops_per_s: float = FP32_OPS_PER_S) -> float:
     """The least time the card could take: bytes over the memory rate or
-    float32 operations over the peak rate, whichever is larger."""
-    return 1e3 * max(nbytes / HBM_BYTES_PER_S, ops / FP32_OPS_PER_S)
+    operations over their peak rate (float32 by default), whichever is
+    larger."""
+    return 1e3 * max(nbytes / HBM_BYTES_PER_S, ops / ops_per_s)
+
+
+def bound_by(nbytes: float, ops: float, ops_per_s: float = FP32_OPS_PER_S) -> str:
+    """Which term sets :func:`bound_ms`: "bytes" or "operations"."""
+    return "bytes" if nbytes / HBM_BYTES_PER_S >= ops / ops_per_s else "operations"
 
 
 def card() -> str:
