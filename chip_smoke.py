@@ -11,10 +11,13 @@ Phases, each printing its own lines; any failure exits nonzero:
              every main-path shape, with the stated tolerance, and the
              kernel's, the plain version's and (where one PyTorch call
              computes the same function) the library call's times: the
-             MaxStyle kernels at the hook shapes of both training cells,
-             the bilinear warp (N=10, 224 -> 192), the spline prefilter's
-             matrix form against its recursion and the cubic warp (N=10,
-             288 -> 224), and conv3x3_bn_stats at its bench's three shapes
+             MaxStyle kernels at the hook shapes of both training cells
+             (stats and bwd also at five ragged shapes, and twice on one
+             input, bit for bit; beside them the launch floor, the time of
+             fill_ on a one-element tensor), the bilinear warp (N=10,
+             224 -> 192), the spline prefilter's matrix form against its
+             recursion and the cubic warp (N=10, 288 -> 224), and
+             conv3x3_bn_stats at its bench's three shapes
              (timed) and at ragged shapes that reach every masked edge;
 4. reference — on a small input, the MaxStyle generation through the
              kernels against the plain autograd op, and the stylized and
@@ -60,10 +63,12 @@ PER_STEP = {
 LAUNCH_PATH = {"maxstyle_stats": "slice", "maxstyle_apply": "slice", "maxstyle_bwd": "slice",
                "warp_bilinear_nearest": "slice", "warp_cubic_nearest": "slice_prostate_cubic",
                "conv3x3_bn_stats": "conv_bn_fusion"}
-# the style hooks of one decode (hook 3: 16 ch at half size, hook 4: 16 ch,
-# hook 5: 1 ch), effective batch 20, for the 192^2 and the 224^2 cells
-STYLE_SHAPES = {"headline": ((20, 16, 96, 96), (20, 16, 192, 192), (20, 1, 192, 192)),
-                "prostate": ((20, 16, 112, 112), (20, 16, 224, 224), (20, 1, 224, 224))}
+# stats and bwd are also checked at ragged shapes: hw % 4 != 0, hw = 1, a
+# plane that is not a whole number of float4 steps, and two that split over
+# a cluster with a short last rank (on 132 SMs: 130^2 into 8 ranks of 2116
+# values and a last of 2088 on the float4 path; 101^2 into 4 ranks of 2552
+# and a last of 2545 on the scalar path)
+STYLE_RAGGED = ((3, 5, 7, 9), (2, 1, 1, 1), (4, 3, 33, 31), (2, 1, 130, 130), (1, 1, 101, 101))
 WARP_SHAPE = (10, 224, 192)   # N, padded source side, crop side
 CUBIC_SHAPE = (10, 288, 224)
 
@@ -105,14 +110,18 @@ def phase_device():
 
 def _ptxas_report(log: str):
     """(kernel, registers line, spills line) for each entry function in an
-    nvcc -Xptxas -v log; a conv kernel is named by its Cfg<N, MT, WG>."""
+    nvcc -Xptxas -v log; a conv kernel is named by its Cfg<N, MT, WG>, a bwd
+    kernel by its <threads, evict-first stores>."""
     out, name, spills = [], "?", ""
     for ln in log.splitlines():
         if "Compiling entry function" in ln:
             cfg = re.search(r"CfgILi(\d+)ELi(\d+)ELi(\d+)E", ln)
             kern = re.search(r"(\w+?_kernel)", ln)
+            targs = re.search(r"_kernelILi(\d+)ELb([01])E", ln)
             name = (f"Cfg<{', '.join(cfg.groups())}>" if cfg else
                     re.sub(r"^_Z\d+", "", kern.group(1)) if kern else ln.split("'")[1][:40])
+            if targs and not cfg:
+                name += f"<{targs.group(1)}, {targs.group(2)}>"
         elif "spill" in ln:
             spills = ln.strip()
         elif "Used" in ln and "registers" in ln:
@@ -146,15 +155,35 @@ def _row_bound_by(shapes):
     return max(share, key=share.get)
 
 
-def _style_rows(rows, cell, shapes):
+def _stats_err(k, p):
+    """Largest relative difference of the kernel's (mu, sig) from the plain
+    version's."""
+    return max(float(((a - b).abs() / b.abs().clamp_min(1e-30)).max()) for a, b in zip(k, p))
+
+
+def _bwd_err(k, p, g, x):
+    """(largest difference, checked error): dx exact, the sums relative to
+    the sums of |terms|."""
+    import torch
+    (dk, sk), (dp, sp) = k, p
+    ref_abs = torch.stack([g.abs().sum((2, 3)), (g * x).abs().sum((2, 3))], 1)
+    dx_err = float((dk - dp).abs().max())
+    return (max(dx_err, float((sk - sp).abs().max())),
+            max(dx_err, float(((sk - sp).abs() / ref_abs.clamp_min(1e-30)).max())))
+
+
+def _bit_equal(a, b):
+    import torch
+    return all(torch.equal(u, v) for u, v in zip(a, b))
+
+
+def _style_rows(rows, cell, shapes, eps):
     """The three MaxStyle kernels against their plain versions at one cell's
-    hook shapes; returns whether all agree."""
+    hook shapes; stats and bwd also twice on one input, bit for bit. Returns
+    whether all agree."""
     import torch
     from maxstyle_tpu_torch.ops import maxstyle_kernels as mk
     from maxstyle_tpu_torch.timing import copies_beyond_l2, cuda_ms
-
-    def norm_err(k, p, ref_abs):
-        return float(((k - p).abs() / ref_abs.clamp_min(1e-30)).max())
 
     ok = True
     for si, shape in enumerate(shapes):
@@ -169,16 +198,19 @@ def _style_rows(rows, cell, shapes):
         x, gr = xs[0], gs[0]
         s4, t4 = scale[:, :, None, None], shift[:, :, None, None]
 
-        # stats: sum and sum of squares per plane; tolerance 1e-5 of sum|terms|
-        k, p = mk.channel_sums(x), mk.channel_sums_plain(x)
-        err = norm_err(k, p, torch.stack([x.abs().sum((2, 3)), (x * x).sum((2, 3))], 1))
+        # stats: mu and sig per plane, rtol 1e-5; bit-equal over two calls
+        k, p = mk.channel_moments(x, eps), mk.channel_moments_plain(x, eps)
+        err = _stats_err(k, p)
+        same = _bit_equal(k, mk.channel_moments(x, eps))
         rows["maxstyle_stats"]["shapes"].append(dict(
-            cell=cell, shape=list(shape), max_abs_err=float((k - p).abs().max()), rel_err=err,
-            tol=1e-5, ms=cuda_ms(lambda i: mk.channel_sums(xs[i]), copies),
-            plain_ms=cuda_ms(lambda i: mk.channel_sums_plain(xs[i]), copies),
+            cell=cell, shape=list(shape),
+            max_abs_err=max(float((a - b_).abs().max()) for a, b_ in zip(k, p)), rel_err=err,
+            tol=1e-5, bit_equal_over_two_calls=same,
+            ms=cuda_ms(lambda i: mk.channel_moments(xs[i], eps), copies),
+            plain_ms=cuda_ms(lambda i: mk.channel_moments_plain(xs[i], eps), copies),
             library_ms=cuda_ms(lambda i: torch.var_mean(xs[i], dim=(2, 3)), copies),
-            **_roof(n_el * 4 + b * 2 * c * 4, 3 * n_el)))
-        ok &= err <= 1e-5
+            **_roof(n_el * 4 + 2 * b * c * 4, 3 * n_el)))
+        ok &= err <= 1e-5 and same
 
         # apply: out = x * scale + shift; tolerance 1e-6 of max|out|
         # (the kernel fuses the multiply-add, the plain version rounds twice)
@@ -192,20 +224,52 @@ def _style_rows(rows, cell, shapes):
             **_roof(2 * n_el * 4 + 2 * b * c * 4, 2 * n_el)))
         ok &= err <= 1e-6
 
-        # bwd: dx = g * scale (exact), sums of g and g*x (1e-5 of sum|terms|)
-        (dk, sk), (dp, sp) = mk.plane_affine_bwd(gr, x, scale), mk.plane_affine_bwd_plain(gr, x, scale)
-        ref_abs = torch.stack([gr.abs().sum((2, 3)), (gr * x).abs().sum((2, 3))], 1)
-        err = max(float((dk - dp).abs().max()), norm_err(sk, sp, ref_abs))
+        # bwd: dx = g * scale (exact), sums of g and g*x (1e-5 of sum|terms|);
+        # bit-equal over two calls
+        kb = mk.plane_affine_bwd(gr, x, scale)
+        max_err, err = _bwd_err(kb, mk.plane_affine_bwd_plain(gr, x, scale), gr, x)
+        same = _bit_equal(kb, mk.plane_affine_bwd(gr, x, scale))
         rows["maxstyle_bwd"]["shapes"].append(dict(
-            cell=cell, shape=list(shape),
-            max_abs_err=max(float((dk - dp).abs().max()), float((sk - sp).abs().max())),
-            rel_err=err, tol=1e-5,
+            cell=cell, shape=list(shape), max_abs_err=max_err, rel_err=err, tol=1e-5,
+            bit_equal_over_two_calls=same,
             ms=cuda_ms(lambda i: mk.plane_affine_bwd(gs[i], xs[i], scale), copies),
             plain_ms=cuda_ms(lambda i: mk.plane_affine_bwd_plain(gs[i], xs[i], scale), copies),
             library_ms=None,
             **_roof(3 * n_el * 4 + 3 * b * c * 4, 4 * n_el)))
-        ok &= err <= 1e-5
+        ok &= err <= 1e-5 and same
         del xs, gs
+    return ok
+
+
+def _style_ragged(rows, eps):
+    """Stats and bwd at ragged shapes (hw % 4 != 0, hw = 1, a plane cut
+    unevenly, within a block and across a cluster's ranks), against their
+    plain versions and bit-equal over two calls."""
+    import torch
+    from maxstyle_tpu_torch.ops import maxstyle_kernels as mk
+
+    ok = True
+    for name in ("maxstyle_stats", "maxstyle_bwd"):
+        rows[name]["ragged_checks"] = []
+    for i, shape in enumerate(STYLE_RAGGED):
+        g = torch.Generator(device="cuda").manual_seed(20 + i)
+        x = torch.randn(shape, generator=g, device="cuda") * 2 + 1
+        gr = torch.randn(shape, generator=g, device="cuda")
+        scale = torch.randn(shape[:2], generator=g, device="cuda")
+        k_ranks, per_rank = mk._tiling(x)
+        k = mk.channel_moments(x, eps)
+        err, same = _stats_err(k, mk.channel_moments_plain(x, eps)), _bit_equal(
+            k, mk.channel_moments(x, eps))
+        kb = mk.plane_affine_bwd(gr, x, scale)
+        _, berr = _bwd_err(kb, mk.plane_affine_bwd_plain(gr, x, scale), gr, x)
+        bsame = _bit_equal(kb, mk.plane_affine_bwd(gr, x, scale))
+        for name, e, s in (("maxstyle_stats", err, same), ("maxstyle_bwd", berr, bsame)):
+            rows[name]["ragged_checks"].append(dict(shape=list(shape), rel_err=e, tol=1e-5,
+                                                    bit_equal_over_two_calls=s,
+                                                    cluster=k_ranks, per_rank=per_rank))
+            print(f"kernel {name} ragged {list(shape)} (cluster of {k_ranks}, {per_rank} "
+                  f"values a rank): checked err {e:.3e} (tol 1e-5), bit-equal over two calls {s}")
+            ok &= e <= 1e-5 and s
     return ok
 
 
@@ -341,9 +405,18 @@ def phase_kernels():
     """Each kernel vs its plain version at every main-path shape."""
     rows = {name: {"name": name, "route": "cuda", "source": SOURCES[name][0],
                    "replaces": SOURCES[name][1], "shapes": []} for name in KERNELS}
+    from maxstyle_tpu_torch.config import MaxStyleConfig
+    from maxstyle_tpu_torch.bench_style import STYLE_SHAPES, launch_floor_ms
+    eps = MaxStyleConfig().eps
     ok = True
     for cell, shapes in STYLE_SHAPES.items():
-        ok &= _style_rows(rows, cell, shapes)
+        ok &= _style_rows(rows, cell, shapes, eps)
+    ok &= _style_ragged(rows, eps)
+    floor = launch_floor_ms()
+    print(f"launch floor: fill_ of a one-element tensor {floor:.5f} ms a launch "
+          f"(CUDA-graph replay)")
+    for name in ("maxstyle_stats", "maxstyle_bwd"):
+        rows[name]["launch_floor_ms"] = floor
     ok &= _warp_rows(rows)
     ok &= _conv_rows(rows)
     for row in rows.values():

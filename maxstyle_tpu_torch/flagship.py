@@ -16,7 +16,11 @@ Counterpart of ``__graft_entry__._flagship_solver`` and
   with ``image_interp="cubic"``: 288^2 pads cropped to 224^2, 2 classes,
   policy Prostate_affine_elastic_intensity, the order-3 spline warp.
 * :func:`measure_throughput` times ``make_multi_step`` on synthetic raw
-  slices, with the policy, sizes and class count of the solver's config.
+  slices, with the policy, sizes and class count of the solver's config;
+  ``python3 -m maxstyle_tpu_torch.flagship --workload headline|prostate_cubic``
+  prints its steps/s as one JSON line (K = 4, rounds of 2 calls, as
+  ``chip_smoke.py`` runs it). Run as ``PYTHONPATH=<checkout> python3
+  maxstyle_tpu_torch/flagship.py ...`` it times another checkout's step.
 
 Every entry point runs on the GPU unless the caller passes ``device="cpu"``;
 without a GPU and without that request it raises.
@@ -142,3 +146,26 @@ def measure_throughput(solver: TripletSegmentationSolver, k_inner: int = 16,
         rates.append(n_calls * k_inner / (time.perf_counter() - t0))
     rates.sort()
     return rates[len(rates) // 2], state, metrics
+
+
+WORKLOADS = {"headline": flagship_solver, "prostate_cubic": prostate_cubic_solver}
+
+
+def main(argv=None) -> None:
+    import argparse
+    import json
+    import sys
+
+    ap = argparse.ArgumentParser(description="steps/s of a MaxStyle training workload")
+    ap.add_argument("--workload", choices=sorted(WORKLOADS), default="headline")
+    args = ap.parse_args(argv)
+    solver = WORKLOADS[args.workload](device="cuda")
+    # the median of 5 timed rounds of 2 calls
+    rate, _, _ = measure_throughput(solver, k_inner=4, n_calls=2, n_repeats=5)
+    print(json.dumps({"workload": args.workload, "steps_per_s": rate,
+                      "device": torch.cuda.get_device_name(0),
+                      "package": sys.modules["maxstyle_tpu_torch"].__file__}))
+
+
+if __name__ == "__main__":
+    main()

@@ -34,11 +34,12 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_F = ctypes.c_float
 # C signature of every entry point: (source, function, argtypes)
 _SIGNATURES = {
-    "ms_stats": ("maxstyle", (_P, _P, _I, _I, _I, _P)),
+    "ms_moments": ("maxstyle", (_P, _P, _P, _I, _I, _I, _I, _F, _P)),
     "ms_apply": ("maxstyle", (_P, _P, _P, _P, _I, _I, _P)),
-    "ms_bwd": ("maxstyle", (_P, _P, _P, _P, _P, _I, _I, _I, _P)),
+    "ms_bwd": ("maxstyle", (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P)),
     "warp_bilinear_nearest": ("warp", (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P)),
     "warp_cubic_nearest": ("warp_cubic", (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P)),
     "conv3x3_bn_stats": ("conv_bn_stats", (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P)),

@@ -3,8 +3,9 @@
 Counterpart of ``maxstyle_tpu/ops/maxstyle_pallas.py``. Three kernels carry
 the op:
 
-* :func:`channel_sums` — per (b, c) plane, sum and sum of squares
-  (replaces ``_stats_kernel``, ``maxstyle_pallas.py:47``);
+* :func:`channel_moments` — per (b, c) plane, the mean and
+  sqrt(unbiased variance + eps) (replaces ``_stats_kernel``,
+  ``maxstyle_pallas.py:47``, and the finishing lines ``:266-270``);
 * :func:`plane_affine` — out = scale[b,c] * x + shift[b,c]
   (replaces ``_apply_kernel``, ``:57``);
 * :func:`plane_affine_bwd` — dx = g * scale[b,c] and, in the same pass,
@@ -14,7 +15,8 @@ The whole normalize / mix / noise / gate chain folds into one affine map per
 plane (:func:`_coefficients`), and :class:`_FusedStyle` is its autograd
 Function, the counterpart of ``_fused_core``'s custom VJP. All three kernels
 are bound by device-memory bytes; the note in the CUDA source says how their
-design meets that bound.
+design meets that bound. The two reductions run one thread-block cluster
+per plane, tiled by :func:`_plane_tiling`.
 
 Each wrapper takes the plain PyTorch version of its kernel for a tensor on
 the CPU only; for a CUDA tensor it launches the kernel or raises. The CPU
@@ -23,6 +25,7 @@ tests therefore run this module's autograd algebra on the plain versions.
 
 from __future__ import annotations
 
+import functools
 from typing import Tuple
 
 import torch
@@ -45,9 +48,16 @@ def _on_cpu(*tensors: torch.Tensor) -> bool:
 # ---------------------------------------------------------------------------
 
 
-def channel_sums_plain(x: torch.Tensor) -> torch.Tensor:
-    """x [B,C,H,W] -> [B,2,C] = (sum, sum of squares) over each plane."""
-    return torch.stack([x.sum(dim=(2, 3)), (x * x).sum(dim=(2, 3))], dim=1)
+def channel_moments_plain(x: torch.Tensor, eps: float
+                          ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x [B,C,H,W] -> (mu, sig), each [B,C]: the mean of each plane and
+    sqrt(unbiased variance + eps), the variance in one pass and clamped at
+    0, as at maxstyle_pallas.py:266-270."""
+    hw = x.shape[2] * x.shape[3]
+    s, sq = x.sum(dim=(2, 3)), (x * x).sum(dim=(2, 3))
+    mu = s / hw
+    var = torch.clamp_min(sq / hw - mu * mu, 0.0) * (hw / max(hw - 1, 1))
+    return mu, torch.sqrt(var + eps)
 
 
 def plane_affine_plain(x: torch.Tensor, scale: torch.Tensor,
@@ -67,14 +77,48 @@ def plane_affine_bwd_plain(g: torch.Tensor, x: torch.Tensor, scale: torch.Tensor
 # ---------------------------------------------------------------------------
 
 
-def channel_sums(x: torch.Tensor) -> torch.Tensor:
-    if _on_cpu(x):
-        return channel_sums_plain(x)
+MAX_CLUSTER = 8            # the portable thread-block cluster size
+MIN_RANK_VALUES = 2048     # a plane is split only into shares of at least this
+
+
+def _plane_tiling(b: int, c: int, hw: int, sm_count: int) -> Tuple[int, int]:
+    """(k, per_rank) for the moments and bwd kernels: each of the b*c planes
+    is one cluster of k blocks, and rank r covers values
+    [r * per_rank, min(hw, (r + 1) * per_rank)) of it.
+
+    k doubles (up to 8) while the grid has fewer blocks than the card has
+    SMs and each rank keeps at least MIN_RANK_VALUES values: the 20-plane
+    hook gets 160 blocks, the 320-plane hooks one block a plane, all in one
+    wave. per_rank is a multiple of 4, so every rank starts on a float4."""
+    planes = b * c
+    k = 1
+    while k < MAX_CLUSTER and planes * k < sm_count and hw >= 2 * k * MIN_RANK_VALUES:
+        k *= 2
+    per_rank = -(-hw // k)
+    return k, -(-per_rank // 4) * 4
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device_index: int) -> int:
+    return torch.cuda.get_device_properties(device_index).multi_processor_count
+
+
+def _tiling(x: torch.Tensor) -> Tuple[int, int]:
+    """_plane_tiling of x [B,C,H,W] on the card that holds it."""
     b, c, h, w = x.shape
-    sums = torch.zeros((b, 2, c), device=x.device, dtype=torch.float32)
-    kernels.launch("ms_stats", x, sums, b * c, h * w, c)
+    return _plane_tiling(b, c, h * w, _sm_count(x.device.index))
+
+
+def channel_moments(x: torch.Tensor, eps: float) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x [B,C,H,W] -> (mu, sig), each [B,C]; see :func:`channel_moments_plain`."""
+    if _on_cpu(x):
+        return channel_moments_plain(x, eps)
+    b, c, h, w = x.shape
+    mu = torch.empty((b, c), device=x.device, dtype=torch.float32)
+    sig = torch.empty_like(mu)
+    kernels.launch("ms_moments", x, mu, sig, b * c, h * w, *_tiling(x), eps)
     kernels.LAUNCHES["maxstyle_stats"] += 1
-    return sums
+    return mu, sig
 
 
 def plane_affine(x: torch.Tensor, scale: torch.Tensor, shift: torch.Tensor) -> torch.Tensor:
@@ -97,8 +141,8 @@ def plane_affine_bwd(g: torch.Tensor, x: torch.Tensor, scale: torch.Tensor
     if g.shape != x.shape or scale.shape != (b, c):
         raise ValueError("g must match x and scale must be [B, C]")
     dx = torch.empty_like(x)
-    sums = torch.zeros((b, 2, c), device=x.device, dtype=torch.float32)
-    kernels.launch("ms_bwd", g, x, scale, dx, sums, b * c, h * w, c)
+    sums = torch.empty((b, 2, c), device=x.device, dtype=torch.float32)
+    kernels.launch("ms_bwd", g, x, scale, dx, sums, b * c, h * w, c, *_tiling(x))
     kernels.LAUNCHES["maxstyle_bwd"] += 1
     return dx, sums
 
@@ -175,14 +219,9 @@ def apply_maxstyle_kernels(x: torch.Tensor, params: MaxStyleParams,
     if is_noop(x, cfg):
         return x, state
     x = x.contiguous()
-    b, c, h, w = x.shape
-    hw = h * w
+    b, c = x.shape[:2]
     # stats of a detached input: no gradient ever reaches this kernel
-    sums = channel_sums(x.detach())
-    mu = sums[:, 0, :] / hw
-    # unbiased variance, single pass, as at maxstyle_pallas.py:266-270
-    var = torch.clamp_min(sums[:, 1, :] / hw - mu * mu, 0.0) * (hw / max(hw - 1, 1))
-    sig = torch.sqrt(var + cfg.eps)
+    mu, sig = channel_moments(x.detach(), cfg.eps)
 
     new_state = cached_spreads(state, sig[:, :, None, None], mu[:, :, None, None],
                                _group_size(cfg, b))

@@ -9,8 +9,9 @@ MaxStyle config with the cubic warp, effective batch 20 at 224^2; both
 MaxStyle n_iter=5), then traces one more call with ``torch.profiler`` and
 prints: the wall time of the traced call, the summed device time of all
 kernels and the device's busy share (device time over wall time), the
-device time per step of the port's CUDA kernels, and the kernels with the
-most device time.
+device launches a step, the launches and device time per step of the
+port's CUDA kernels, the kernels with the most device time, and those with
+the most launches.
 """
 
 from __future__ import annotations
@@ -21,16 +22,13 @@ import time
 import torch
 from torch.profiler import ProfilerActivity, profile
 
-from maxstyle_tpu_torch.flagship import (flagship_solver, make_raw_batches,
-                                         prostate_cubic_solver, workload_policy)
+from maxstyle_tpu_torch.flagship import WORKLOADS, make_raw_batches, workload_policy
 from maxstyle_tpu_torch.train_step import make_multi_step
 
 # symbol fragments of the port's kernels in the profiler's kernel names
 PORT_KERNELS = {name: f"{name}_kernel" for name in
                 ("maxstyle_stats", "maxstyle_apply", "maxstyle_bwd", "warp_bilinear_nearest",
                  "warp_cubic_nearest")}
-WORKLOADS = {"headline": lambda: flagship_solver(hw=192, batch=20, device="cuda"),
-             "prostate_cubic": lambda: prostate_cubic_solver(device="cuda")}
 
 
 def _device_us(evt) -> float:
@@ -47,7 +45,7 @@ def main() -> None:
     ap.add_argument("--top", type=int, default=25)
     args = ap.parse_args()
 
-    solver = WORKLOADS[args.workload]()
+    solver = WORKLOADS[args.workload](device="cuda")
     cfg = solver.config
     state = solver.init_state(0)
     policy = workload_policy(cfg)
@@ -81,6 +79,8 @@ def main() -> None:
           f"profiler; kernel device time {device_ms:.3f} ms "
           f"({device_ms / steps:.3f} ms/step); device busy share "
           f"{device_ms / wall_ms:.4f}")
+    print(f"profile: device launches {sum(e.count for e in kernels) / steps:.1f}/step "
+          f"(every kernel)")
     for name, frag in PORT_KERNELS.items():
         evts = [e for e in kernels if frag in e.key]
         us = sum(_device_us(e) for e in evts)
@@ -91,6 +91,10 @@ def main() -> None:
     for e in kernels[:args.top]:
         print(f"profile: {_device_us(e) / 1e3 / steps:9.4f} ms/step "
               f"{e.count / steps:7.1f} calls/step  {e.key[:110]}")
+    kernels.sort(key=lambda e: e.count, reverse=True)
+    for e in kernels[:10]:
+        print(f"profile: most launched {e.count / steps:7.1f} calls/step "
+              f"{_device_us(e) / 1e3 / steps:9.4f} ms/step  {e.key[:110]}")
 
 
 if __name__ == "__main__":

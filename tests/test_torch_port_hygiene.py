@@ -53,12 +53,13 @@ def test_entry_points_raise_without_a_gpu_unless_cpu_is_asked():
 def test_kernel_wrappers_take_the_plain_path_only_for_cpu_tensors():
     x = torch.empty((2, 3, 4, 4), device="meta")
     s = torch.empty((2, 3), device="meta")
-    for call in (lambda: mk.channel_sums(x), lambda: mk.plane_affine(x, s, s),
+    for call in (lambda: mk.channel_moments(x, 1e-6), lambda: mk.plane_affine(x, s, s),
                  lambda: mk.plane_affine_bwd(x, x, s)):
         with pytest.raises(ValueError):
             call()
     cpu = torch.randn(2, 3, 4, 4)
-    torch.testing.assert_close(mk.channel_sums(cpu), mk.channel_sums_plain(cpu))
+    torch.testing.assert_close(mk.channel_moments(cpu, 1e-6),
+                               mk.channel_moments_plain(cpu, 1e-6))
 
 
 def test_slice_two_modules_are_walked_and_their_wrappers_refuse_meta_tensors():
