@@ -14,10 +14,13 @@ Phases, each printing its own lines; any failure exits nonzero:
              MaxStyle kernels at the hook shapes of both training cells
              (stats and bwd also at five ragged shapes, and twice on one
              input, bit for bit; beside them the launch floor, the time of
-             fill_ on a one-element tensor), the bilinear warp (N=10,
-             224 -> 192), the spline prefilter's matrix form against its
-             recursion and the cubic warp (N=10, 288 -> 224), and
-             conv3x3_bn_stats at its bench's three shapes
+             fill_ on a one-element tensor; the style map, whose kernel folds
+             its own coefficients, bit-equal in scale and shift and over two
+             calls, also over every branch of the map), the bilinear warp
+             (N=10, 224 -> 192), the spline prefilter's matrix form against
+             its recursion and the cubic warp (N=10, 288 -> 224), both
+             warps bit for bit at the policy's, uniform and rim-straddling
+             coordinates, and conv3x3_bn_stats at its bench's three shapes
              (timed) and at ragged shapes that reach every masked edge;
 4. reference — on a small input, the MaxStyle generation through the
              kernels against the plain autograd op, and the stylized and
@@ -70,7 +73,6 @@ LAUNCH_PATH = {"maxstyle_stats": "slice", "maxstyle_apply": "slice", "maxstyle_b
 # and a last of 2545 on the scalar path)
 STYLE_RAGGED = ((3, 5, 7, 9), (2, 1, 1, 1), (4, 3, 33, 31), (2, 1, 130, 130), (1, 1, 101, 101))
 WARP_SHAPE = (10, 224, 192)   # N, padded source side, crop side
-CUBIC_SHAPE = (10, 288, 224)
 
 SOURCES = {
     "maxstyle_stats": ("maxstyle_tpu_torch/csrc/maxstyle.cu",
@@ -111,7 +113,8 @@ def phase_device():
 def _ptxas_report(log: str):
     """(kernel, registers line, spills line) for each entry function in an
     nvcc -Xptxas -v log; a conv kernel is named by its Cfg<N, MT, WG>, a bwd
-    kernel by its <threads, evict-first stores>."""
+    kernel by its <threads, evict-first stores>, an apply kernel by its
+    vector type."""
     out, name, spills = [], "?", ""
     for ln in log.splitlines():
         if "Compiling entry function" in ln:
@@ -120,8 +123,11 @@ def _ptxas_report(log: str):
             targs = re.search(r"_kernelILi(\d+)ELb([01])E", ln)
             name = (f"Cfg<{', '.join(cfg.groups())}>" if cfg else
                     re.sub(r"^_Z\d+", "", kern.group(1)) if kern else ln.split("'")[1][:40])
+            vec = re.search(r"_kernelI(6float4|f)E", ln)
             if targs and not cfg:
                 name += f"<{targs.group(1)}, {targs.group(2)}>"
+            elif vec:
+                name += "<float4>" if vec.group(1) == "6float4" else "<float>"
         elif "spill" in ln:
             spills = ln.strip()
         elif "Used" in ln and "registers" in ln:
@@ -177,11 +183,83 @@ def _bit_equal(a, b):
     return all(torch.equal(u, v) for u, v in zip(a, b))
 
 
+def _style_inputs(shape, gen, gate, spread_rows, lmda_lo=0.0, lmda_hi=1.0):
+    """The style inputs of style_apply after x, for x of ``shape``: lmda
+    uniform in [lmda_lo, lmda_hi), noise N(0, 1), the moments of a random
+    input, a never-identity permutation, spreads of ``spread_rows`` rows,
+    the gate."""
+    import torch
+    from maxstyle_tpu_torch.ops import maxstyle_kernels as mk
+    b, c = shape[:2]
+    lmda = torch.rand((b, 1), generator=gen, device="cuda") * (lmda_hi - lmda_lo) + lmda_lo
+    gn, bn = (torch.randn((b, c), generator=gen, device="cuda") for _ in range(2))
+    mu, sig = mk.channel_moments_plain(torch.randn(shape, generator=gen, device="cuda") * 2 + 1,
+                                       1e-6)
+    perm = torch.roll(torch.randperm(b, generator=gen, device="cuda"), 1)
+    gstd, bstd = (torch.rand((spread_rows, c), generator=gen, device="cuda") for _ in range(2))
+    return (lmda, gn, bn, mu, sig, perm, gstd, bstd, torch.full((1, 1), gate, device="cuda"))
+
+
+def _apply_agrees(k, p, again):
+    """(scale, shift, mu2 and sig2 bit-equal to the plain version's and the
+    whole result bit-equal over two calls, out's error over max|out|)."""
+    same = _bit_equal(k[1:], p[1:]) and _bit_equal(k, again)
+    return same, float((k[0] - p[0]).abs().max() / p[0].abs().max().clamp_min(1e-30))
+
+
+def _parent_apply(cfg, x, args):
+    """The apply call as the parent made it: the permuted moments gathered,
+    the coefficients folded by torch ops, then one addcmul."""
+    import torch
+    from maxstyle_tpu_torch.ops import maxstyle_kernels as mk
+    lmda, gn, bn, mu, sig, perm, gstd, bstd, gate = args
+    scale, shift = mk._coefficients(cfg, lmda, gn, bn, mu, sig, mu[perm], sig[perm],
+                                    gstd, bstd, gate)
+    return torch.addcmul(shift[:, :, None, None], x, scale[:, :, None, None])
+
+
+def _apply_branches(rows):
+    """The apply kernel over every branch of the style map (mix_style,
+    no_noise, the gate, spreads [1,C] or [B,C], lmda inside or outside
+    [0, 1]) at a float4 and a scalar shape: scale bit-equal, out within
+    1e-6 of max|out|, bit-equal over two calls."""
+    import torch
+    from maxstyle_tpu_torch.config import MaxStyleConfig
+    from maxstyle_tpu_torch.ops import maxstyle_kernels as mk
+
+    ok, checks = True, []
+    for shape in ((4, 16, 24, 24), (4, 3, 33, 31)):
+        g = torch.Generator(device="cuda").manual_seed(40)
+        x = torch.randn(shape, generator=g, device="cuda") * 2 + 1
+        for mix in (True, False):
+            for no_noise in (False, True):
+                for gate in (1.0, 0.0):
+                    for rows_ in (1, shape[0]):
+                        for lo, hi in ((0.0, 1.0), (-1.0, 2.0)):
+                            cfg = MaxStyleConfig(mix_style=mix, no_noise=no_noise)
+                            args = _style_inputs(shape, g, gate, rows_, lo, hi)
+                            same, err = _apply_agrees(mk.style_apply(cfg, x, *args),
+                                                      mk.style_apply_plain(cfg, x, *args),
+                                                      mk.style_apply(cfg, x, *args))
+                            checks.append(dict(shape=list(shape), mix_style=mix,
+                                               no_noise=no_noise, gate=gate,
+                                               spread_rows=rows_, lmda=[lo, hi],
+                                               bit_equal=same, rel_err=err, tol=1e-6))
+                            ok &= same and err <= 1e-6
+    rows["maxstyle_apply"]["branch_checks"] = checks
+    bad = [c for c in checks if not (c["bit_equal"] and c["rel_err"] <= 1e-6)]
+    print(f"kernel maxstyle_apply branches: {len(checks) - len(bad)} of {len(checks)} agree "
+          f"(scale, shift, mu[perm], sig[perm] bit-equal; out within 1e-6 of max|out|; "
+          f"bit-equal over two calls)" + (f"; first failure {bad[0]}" if bad else ""))
+    return ok
+
+
 def _style_rows(rows, cell, shapes, eps):
     """The three MaxStyle kernels against their plain versions at one cell's
     hook shapes; stats and bwd also twice on one input, bit for bit. Returns
     whether all agree."""
     import torch
+    from maxstyle_tpu_torch.config import MaxStyleConfig
     from maxstyle_tpu_torch.ops import maxstyle_kernels as mk
     from maxstyle_tpu_torch.timing import copies_beyond_l2, cuda_ms
 
@@ -194,9 +272,7 @@ def _style_rows(rows, cell, shapes, eps):
         xs = [torch.randn(shape, generator=g, device="cuda") * 2 + 1 for _ in range(copies)]
         gs = [torch.randn(shape, generator=g, device="cuda") for _ in range(copies)]
         scale = torch.randn((b, c), generator=g, device="cuda")
-        shift = torch.randn((b, c), generator=g, device="cuda")
         x, gr = xs[0], gs[0]
-        s4, t4 = scale[:, :, None, None], shift[:, :, None, None]
 
         # stats: mu and sig per plane, rtol 1e-5; bit-equal over two calls
         k, p = mk.channel_moments(x, eps), mk.channel_moments_plain(x, eps)
@@ -212,17 +288,24 @@ def _style_rows(rows, cell, shapes, eps):
             **_roof(n_el * 4 + 2 * b * c * 4, 3 * n_el)))
         ok &= err <= 1e-5 and same
 
-        # apply: out = x * scale + shift; tolerance 1e-6 of max|out|
-        # (the kernel fuses the multiply-add, the plain version rounds twice)
-        k, p = mk.plane_affine(x, scale, shift), mk.plane_affine_plain(x, scale, shift)
-        err = float((k - p).abs().max() / p.abs().max())
+        # apply (coefficients folded in): scale and shift bit-equal to
+        # _coefficients on the card, out within 1e-6 of max|out| (the
+        # kernel fuses the multiply-add), bit-equal over two calls; the
+        # library time is the parent's route (gathers, _coefficients in
+        # torch, addcmul)
+        cfg = MaxStyleConfig()
+        args = _style_inputs(shape, g, 1.0, 1)
+        k, p = mk.style_apply(cfg, x, *args), mk.style_apply_plain(cfg, x, *args)
+        ok_apply, err = _apply_agrees(k, p, mk.style_apply(cfg, x, *args))
         rows["maxstyle_apply"]["shapes"].append(dict(
-            cell=cell, shape=list(shape), max_abs_err=float((k - p).abs().max()), rel_err=err,
-            tol=1e-6, ms=cuda_ms(lambda i: mk.plane_affine(xs[i], scale, shift), copies),
-            plain_ms=cuda_ms(lambda i: mk.plane_affine_plain(xs[i], scale, shift), copies),
-            library_ms=cuda_ms(lambda i: torch.addcmul(t4, xs[i], s4), copies),
-            **_roof(2 * n_el * 4 + 2 * b * c * 4, 2 * n_el)))
-        ok &= err <= 1e-6
+            cell=cell, shape=list(shape), max_abs_err=float((k[0] - p[0]).abs().max()),
+            rel_err=err, tol=1e-6, coefficients_bit_equal=ok_apply,
+            ms=cuda_ms(lambda i: mk.style_apply(cfg, xs[i], *args), copies),
+            plain_ms=cuda_ms(lambda i: mk.style_apply_plain(cfg, xs[i], *args), copies),
+            library_ms=cuda_ms(lambda i: _parent_apply(cfg, xs[i], args), copies),
+            **_roof(2 * n_el * 4 + 8 * b * c * 4 + 3 * b * 4 + 4 * c * 4 + 4,
+                    2 * n_el + 25 * b * c)))
+        ok &= ok_apply and err <= 1e-6
 
         # bwd: dx = g * scale (exact), sums of g and g*x (1e-5 of sum|terms|);
         # bit-equal over two calls
@@ -274,15 +357,18 @@ def _style_ragged(rows, eps):
 
 
 def _warp_case(shape, policy_name, seed, copies):
-    """Copies of images in [0, 1), int32 labels and two sets of source
+    """Copies of images in [0, 1), int32 labels and three sets of source
     coordinates: uniform ones reaching 2 pixels outside the source on every
-    side (the edge cases), and the main path's own, drawn from the policy."""
+    side (the edge cases), the main path's own, drawn from the policy, and
+    a grid stretched over [-2.5, H+1.5] on both axes, so that tiles straddle
+    both rims."""
     import torch
     from maxstyle_tpu_torch.data import augment as A
     n, H, h = shape
     gen = torch.Generator(device="cuda").manual_seed(seed)
     policy = A.get_policy(policy_name, (H, H), (h, h))
-    case = {"img": [], "lab": [], "uniform": [], "policy": []}
+    grid = torch.linspace(-2.5, H + 1.5, h, device="cuda")
+    case = {"img": [], "lab": [], "uniform": [], "policy": [], "rim": []}
     for _ in range(copies):
         case["img"].append(torch.rand((n, H, H), generator=gen, device="cuda"))
         case["lab"].append(torch.randint(0, 4, (n, H, H), generator=gen, device="cuda",
@@ -291,22 +377,27 @@ def _warp_case(shape, policy_name, seed, copies):
                                      * (H + 3) - 2 for _ in range(2)))
         case["policy"].append(tuple(t.contiguous() for t in
                                     A.aug_coords(A.draw_aug(gen, policy, n), policy)))
+        jitter = [torch.rand((n, h, h), generator=gen, device="cuda") * 0.5 for _ in range(2)]
+        case["rim"].append((grid[None, :, None] + jitter[0], grid[None, None, :] + jitter[1]))
     return case
 
 
 def _warp_rows(rows):
-    """Both warps against their plain versions, bit for bit, at uniform and
-    at the main path's coordinates, timed at the main path's; and the
-    prefilter's matrix form against its recursion at atol 1e-5."""
+    """Both warps against their plain versions, bit for bit, at uniform, at
+    the main path's and at rim-straddling coordinates (the cubic warp also
+    bit-equal over two calls), timed at the main path's (the cubic warp
+    also at uniform ones); and the prefilter's matrix form against its
+    recursion at atol 1e-5."""
+    from maxstyle_tpu_torch.bench_style import CUBIC_SHAPE
     from maxstyle_tpu_torch.ops import spline
     from maxstyle_tpu_torch.ops import warp_kernels as wk
     from maxstyle_tpu_torch.timing import copies_beyond_l2, cuda_ms
 
     def mismatch(kernel, plain, images, case):
-        """(largest image difference, label mismatches) over both coordinate
-        sets."""
+        """(largest image difference, label mismatches) over every kind of
+        coordinates."""
         img_err, lab_err = 0.0, 0
-        for coords in ("uniform", "policy"):
+        for coords in ("uniform", "policy", "rim"):
             (ki, kl), (pi, pl) = (f(images, case["lab"][0], *case[coords][0])
                                   for f in (kernel, plain))
             img_err = max(img_err, float((ki - pi).abs().max()))
@@ -341,8 +432,11 @@ def _warp_rows(rows):
                                         coefs[0], case)
             whole_err, whole_lab = mismatch(wk.warp_cubic_nearest, wk.warp_cubic_nearest_plain,
                                             case["img"][0], case)
-            ok &= pre_err <= 1e-5 and whole_err == 0.0 and whole_lab == 0
+            same = all(_bit_equal(*(wk.sample_cubic_nearest(coefs[0], labs[0], *case[k][0])
+                                    for _ in range(2))) for k in ("uniform", "policy", "rim"))
+            ok &= pre_err <= 1e-5 and whole_err == 0.0 and whole_lab == 0 and same
             row.update(cell="prostate_cubic", prefilter_matrix_vs_loop_err=pre_err,
+                       bit_equal_over_two_calls=same,
                        prefilter_tol=1e-5, wrapper_err=whole_err, wrapper_label_mismatches=whole_lab,
                        ms=cuda_ms(lambda i: wk.sample_cubic_nearest(coefs[i], labs[i], *crd[i]),
                                   copies),
@@ -412,6 +506,7 @@ def phase_kernels():
     for cell, shapes in STYLE_SHAPES.items():
         ok &= _style_rows(rows, cell, shapes, eps)
     ok &= _style_ragged(rows, eps)
+    ok &= _apply_branches(rows)
     floor = launch_floor_ms()
     print(f"launch floor: fill_ of a one-element tensor {floor:.5f} ms a launch "
           f"(CUDA-graph replay)")

@@ -1,11 +1,12 @@
-// MaxStyle kernels for Hopper (sm_90a): per-plane moments, the folded
-// affine map, and its backward pass.
+// MaxStyle kernels for Hopper (sm_90a): per-plane moments, the style map
+// (its coefficients folded and applied), and its backward pass.
 //
 // Replaces maxstyle_tpu/ops/maxstyle_pallas.py:
-//   ms_moments (maxstyle_stats_kernel) -> _stats_kernel (launched by _batched_stats),
-//                                         finished as at maxstyle_pallas.py:266-270
-//   ms_apply   (maxstyle_apply_kernel) -> _apply_kernel (launched by _batched_apply)
-//   ms_bwd     (maxstyle_bwd_kernel)   -> _bwd_kernel   (launched by _batched_bwd)
+//   ms_moments     (maxstyle_stats_kernel) -> _stats_kernel (launched by _batched_stats),
+//                                             finished as at maxstyle_pallas.py:266-270
+//   ms_style_apply (maxstyle_apply_kernel) -> _coefficients and _apply_kernel
+//                                             (launched by _batched_apply)
+//   ms_bwd         (maxstyle_bwd_kernel)   -> _bwd_kernel   (launched by _batched_bwd)
 //
 // Layout: x is NCHW float32, so each (b, c) plane of HW values is contiguous.
 // The TPU kernels repacked [HW, C] into 128-lane rows; here a plane already
@@ -13,7 +14,7 @@
 //
 // Bound: all three are bound by device-memory bytes. Each reads its inputs
 // once (moments: x; apply: x; bwd: g and x) and writes its outputs once
-// (apply: out; bwd: dx); the per-plane results are a few KB.
+// (apply: out; bwd: dx); the per-plane inputs and results are a few KB.
 //
 // Moments and bwd reduce each plane to two sums. Design: one plane is one
 // thread-block cluster of k blocks (k in {1, 2, 4, 8}, launched with
@@ -37,7 +38,18 @@
 // rank 0's thread 0 waits on it (cluster_sum2), and the 320-plane hooks run
 // one block a plane with no barrier at all.
 //
-// apply keeps a 2-D grid of (plane, 4096-value chunk) blocks.
+// Apply folds the MaxStyle chain into a per-plane (scale, shift) itself, in
+// _coefficients' order with one rounding a step, so the forward call needs
+// no elementwise launches around it. Block (chunk, plane) of a 2-D grid
+// streams kApplyUnroll * 256 vector elements of one plane: each thread
+// issues its kApplyUnroll loads of x first, so the dependent
+// perm -> mu[perm] loads of the coefficients wait behind them, not in front
+// of them; then it folds the plane's coefficients (every thread of the
+// block the same ones) and stores. The plane's first thread writes its
+// scale, shift, mu[perm] and sig[perm] for the backward pass. Grids sized
+// to one wave of the card, each thread walking a flat run of elements and
+// folding again at each plane it enters, were slower on the H100, and
+// evict-first stores of out gained nothing (the next convolution reads it).
 // Arithmetic is float32 throughout, accumulation included.
 //
 // Every entry point returns cudaGetLastError() (or the launch's own error)
@@ -50,8 +62,8 @@ namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int kThreads = 256;              // apply
-constexpr int kChunk = kThreads * 4 * 4;    // apply: values of one plane per block
+constexpr int kApplyThreads = 256;         // apply
+constexpr int kApplyUnroll = 4;             // apply: loads of x in flight per thread
 constexpr int kPlaneThreads = 512;          // moments and bwd
 constexpr int kStatsUnroll = 8;             // float4 loads of x in flight per thread
 constexpr int kBwdUnroll = 2;               // float4 loads each of g and x per step
@@ -139,8 +151,8 @@ __device__ __forceinline__ bool cluster_sum2(float& a, float& b, unsigned k) {
 
 // This block's share of its plane: values [begin, end) of plane `plane`,
 // which starts at `base`. float4 loads are used when every plane and every
-// share starts on a 16-byte boundary (hw % 4 == 0; the chunk and per_rank
-// are multiples of 4).
+// share starts on a 16-byte boundary (hw % 4 == 0; per_rank is a multiple
+// of 4).
 struct Span {
   long long plane;
   long long base;
@@ -148,17 +160,6 @@ struct Span {
   int end;
   bool vec;
 };
-
-// apply: block (plane, chunk) of a 2-D grid.
-__device__ __forceinline__ Span chunk_span(int hw) {
-  Span s;
-  s.plane = blockIdx.x;
-  s.base = s.plane * (long long)hw;
-  s.begin = blockIdx.y * kChunk;
-  s.end = min(hw, s.begin + kChunk);
-  s.vec = (hw & 3) == 0;
-  return s;
-}
 
 // moments and bwd: rank r of the plane's cluster of k blocks.
 __device__ __forceinline__ Span rank_span(int hw, int per_rank) {
@@ -225,27 +226,92 @@ maxstyle_stats_kernel(const float* __restrict__ x, float* __restrict__ mu,
   }
 }
 
-__global__ void __launch_bounds__(kThreads)
-maxstyle_apply_kernel(const float* __restrict__ x, const float* __restrict__ scale,
-                      const float* __restrict__ shift, float* __restrict__ out, int hw) {
-  const Span s = chunk_span(hw);
-  const float a = scale[blockIdx.x];
-  const float b = shift[blockIdx.x];
-  const float* p = x + s.base;
-  float* o = out + s.base;
-  if (s.vec) {
-    const float4* p4 = reinterpret_cast<const float4*>(p);
-    float4* o4 = reinterpret_cast<float4*>(o);
-    for (int i = s.begin / 4 + threadIdx.x; i < s.end / 4; i += kThreads) {
-      float4 v = __ldg(p4 + i);
-      v.x = v.x * a + b;
-      v.y = v.y * a + b;
-      v.z = v.z * a + b;
-      v.w = v.w * a + b;
-      o4[i] = v;
-    }
+// The inputs of the style map (all [B, C] unless said), as _FusedStyle
+// receives them.
+struct StyleArgs {
+  const float* lmda;      // [B]
+  const float* gn;        // gamma noise
+  const float* bn;        // beta noise
+  const float* mu;
+  const float* sig;
+  const long long* perm;  // [B]
+  const float* gstd;      // spreads: [1, C] (spread_stride 0) or [B, C] (stride C)
+  const float* bstd;
+  const float* gate;      // [1]
+  float* coefs;           // out: [4, B, C] = scale, shift, mu[perm], sig[perm]
+  int spread_stride;
+  int planes;
+  int channels;
+  int mix_style;
+  int no_noise;
+};
+
+// (scale, shift) of plane p = b * C + c, in the order of _coefficients
+// (ops/maxstyle_kernels.py): every step rounds on its own, so scale and
+// shift are bit-equal to the plain torch ops on the same card. `first`:
+// also write them (and the permuted moments) for the backward pass.
+__device__ __forceinline__ float2 style_coefficients(const StyleArgs& a, int p, bool first) {
+  const int b = p / a.channels;
+  const int c = p - b * a.channels;
+  const int q = static_cast<int>(a.perm[b]) * a.channels + c;
+  const float mu = a.mu[p], sig = a.sig[p], mu2 = a.mu[q], sig2 = a.sig[q];
+  float sig_mix = sig, mu_mix = mu;
+  if (a.mix_style) {
+    const float lm = fminf(fmaxf(a.lmda[b], 0.0f), 1.0f);
+    const float keep = __fsub_rn(1.0f, lm);
+    sig_mix = __fadd_rn(__fmul_rn(sig, keep), __fmul_rn(sig2, lm));
+    mu_mix = __fadd_rn(__fmul_rn(mu, keep), __fmul_rn(mu2, lm));
+  }
+  float scale, shift;
+  if (a.no_noise) {
+    scale = __fdiv_rn(sig_mix, sig);
+    shift = __fsub_rn(mu_mix, __fmul_rn(mu, scale));
   } else {
-    for (int i = s.begin + threadIdx.x; i < s.end; i += kThreads) o[i] = __ldg(p + i) * a + b;
+    const int s = b * a.spread_stride + c;
+    scale = __fdiv_rn(__fadd_rn(sig_mix, __fmul_rn(a.gn[p], a.gstd[s])), sig);
+    shift = __fsub_rn(__fadd_rn(mu_mix, __fmul_rn(a.bn[p], a.bstd[s])), __fmul_rn(mu, scale));
+  }
+  // the gate folds into the map: off -> identity
+  const float g = a.gate[0];
+  scale = __fadd_rn(__fmul_rn(g, scale), __fsub_rn(1.0f, g));
+  shift = __fmul_rn(g, shift);
+  if (first) {
+    a.coefs[p] = scale;
+    a.coefs[a.planes + p] = shift;
+    a.coefs[2 * a.planes + p] = mu2;
+    a.coefs[3 * a.planes + p] = sig2;
+  }
+  return make_float2(scale, shift);
+}
+
+__device__ __forceinline__ float4 affine(float4 v, float2 k) {
+  return make_float4(__fmaf_rn(v.x, k.x, k.y), __fmaf_rn(v.y, k.x, k.y),
+                     __fmaf_rn(v.z, k.x, k.y), __fmaf_rn(v.w, k.x, k.y));
+}
+__device__ __forceinline__ float affine(float v, float2 k) { return __fmaf_rn(v, k.x, k.y); }
+
+// V is float4 (hw % 4 == 0) or float; hw_v vector elements a plane. Block
+// (chunk, plane) covers elements [chunk * kApplyUnroll * T, +kApplyUnroll * T)
+// of its plane; thread t takes every T-th of them from t on.
+template <typename V>
+__global__ void __launch_bounds__(kApplyThreads)
+maxstyle_apply_kernel(const V* __restrict__ x, V* __restrict__ out, const StyleArgs a,
+                      unsigned hw_v) {
+  const int p = blockIdx.y;
+  const V* xp = x + static_cast<size_t>(p) * hw_v;
+  V* op = out + static_cast<size_t>(p) * hw_v;
+  const unsigned begin = blockIdx.x * kApplyUnroll * kApplyThreads + threadIdx.x;
+  V v[kApplyUnroll];
+#pragma unroll
+  for (int u = 0; u < kApplyUnroll; ++u) {
+    const unsigned i = begin + u * kApplyThreads;
+    if (i < hw_v) v[u] = __ldg(xp + i);
+  }
+  const float2 k = style_coefficients(a, p, blockIdx.x == 0 && threadIdx.x == 0);
+#pragma unroll
+  for (int u = 0; u < kApplyUnroll; ++u) {
+    const unsigned i = begin + u * kApplyThreads;
+    if (i < hw_v) op[i] = affine(v[u], k);
   }
 }
 
@@ -330,8 +396,6 @@ maxstyle_bwd_kernel(const float* __restrict__ g, const float* __restrict__ x,
   }
 }
 
-inline dim3 grid_for(int planes, int hw) { return dim3(planes, (hw + kChunk - 1) / kChunk); }
-
 // A tiling the kernels can run: k a cluster size they take, every rank's
 // share 16-byte aligned where the float4 path runs, the plane covered.
 inline bool tiling_ok(int planes, int hw, int k, int per_rank) {
@@ -378,12 +442,32 @@ int ms_moments(const void* x, void* mu, void* sig, int planes, int hw, int k, in
                          static_cast<float*>(sig), hw, per_rank, eps);
 }
 
-// out[p, i] = x[p, i] * scale[p] + shift[p]; scale/shift: [planes].
-int ms_apply(const void* x, const void* scale, const void* shift, void* out, int planes,
-             int hw, void* stream) {
-  maxstyle_apply_kernel<<<grid_for(planes, hw), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(x), static_cast<const float*>(scale),
-      static_cast<const float*>(shift), static_cast<float*>(out), hw);
+// out[p, i] = x[p, i] * scale[p] + shift[p] with (scale, shift) folded
+// from the style inputs (StyleArgs); coefs ([4, planes]) receives scale,
+// shift, mu[perm] and sig[perm].
+int ms_style_apply(const void* x, void* out, const void* lmda, const void* gn, const void* bn,
+                   const void* mu, const void* sig, const void* perm, const void* gstd,
+                   const void* bstd, int spread_stride, const void* gate, void* coefs,
+                   int planes, int hw, int channels, int mix_style, int no_noise, void* stream) {
+  if (planes <= 0 || planes > 65535 || hw <= 0 || channels <= 0 || planes % channels != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const StyleArgs a = {static_cast<const float*>(lmda), static_cast<const float*>(gn),
+                       static_cast<const float*>(bn), static_cast<const float*>(mu),
+                       static_cast<const float*>(sig), static_cast<const long long*>(perm),
+                       static_cast<const float*>(gstd), static_cast<const float*>(bstd),
+                       static_cast<const float*>(gate), static_cast<float*>(coefs),
+                       spread_stride, planes, channels, mix_style, no_noise};
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const bool vec = (hw & 3) == 0;
+  const unsigned hw_v = vec ? hw / 4 : hw;
+  const dim3 grid((hw_v + kApplyUnroll * kApplyThreads - 1) / (kApplyUnroll * kApplyThreads),
+                  planes);
+  if (vec)
+    maxstyle_apply_kernel<<<grid, kApplyThreads, 0, s>>>(static_cast<const float4*>(x),
+                                                         static_cast<float4*>(out), a, hw_v);
+  else
+    maxstyle_apply_kernel<<<grid, kApplyThreads, 0, s>>>(static_cast<const float*>(x),
+                                                         static_cast<float*>(out), a, hw_v);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -5,8 +5,7 @@
 // Replaces maxstyle_tpu/ops/warp_pallas.py::_warp_cubic_kernel (launched by
 // warp_cubic_nearest, after the spline prefilter). The TPU kernel built
 // four-hot interpolation matrices and ran the taps as MXU products because
-// TPU gathers are slow; Hopper gathers from L2, so this kernel is one thread
-// per output pixel with 16 plain loads.
+// TPU gathers are slow; on Hopper the taps are plain loads.
 //
 // Semantics (those of the Pallas kernel and of ops/spline.sample_cubic):
 // taps at floor-1 .. floor+2 on each axis, mirrored at the rim
@@ -22,8 +21,17 @@
 //
 // Bound: device-memory bytes. Per call it reads the coefficients and labels
 // (N*H*W*8 bytes) and the coordinates (N*h*w*8) once and writes N*h*w*8
-// bytes; one 288^2 coefficient plane is 324 KB, so the 16 taps of
-// neighbouring threads hit L2, not device memory.
+// bytes.
+//
+// Design: besides its bytes, a pixel costs 17 gathers through L1 and some
+// two hundred instructions of weights and mirrored indices, so the kernel
+// keeps work in flight: a block of 32 x 4 threads takes a 32 x 8 tile of
+// one image's output, two pixels a thread (rows ty and ty + 4), so both
+// pixels' 17 loads are in flight at once and a warp's taps fall on a few
+// neighbouring source rows. A pixel outside the label range has both
+// outputs masked and reads nothing. Staging each tile's source window in
+// shared memory (cp.async, then every tap from there) measured slower on
+// the H100 at the augmentation's coordinates (PERF.md, section 6).
 //
 // The entry point returns cudaGetLastError() right after its launch.
 
@@ -31,7 +39,11 @@
 
 namespace {
 
-constexpr int kThreads = 256;
+constexpr int kTileW = 32;                    // output columns a block (one warp)
+constexpr int kRowsPerPass = 4;               // warps a block
+constexpr int kPixels = 2;                    // output pixels a thread, kRowsPerPass rows apart
+constexpr int kTileH = kRowsPerPass * kPixels;
+constexpr int kThreads = kTileW * kRowsPerPass;
 constexpr float kSixth = 1.0f / 6.0f;
 
 __device__ __forceinline__ void bspline_weights(float t, float w[4]) {
@@ -53,17 +65,18 @@ __device__ __forceinline__ int reflect(int idx, int n) {
   return min(max(idx, 0), n - 1);
 }
 
-__global__ void __launch_bounds__(kThreads)
-warp_cubic_nearest_kernel(const float* __restrict__ coef, const int* __restrict__ lab,
-                          const float* __restrict__ sy, const float* __restrict__ sx,
-                          float* __restrict__ out_img, int* __restrict__ out_lab,
-                          long long total, int src_h, int src_w, int out_hw) {
-  const long long t = blockIdx.x * (long long)kThreads + threadIdx.x;
-  if (t >= total) return;
-  const long long n = t / out_hw;
-  const float y = __ldg(sy + t);
-  const float x = __ldg(sx + t);
+__device__ __forceinline__ bool inside_label(float y, float x, int h, int w) {
+  return (y >= -0.5f) && (y <= (float)h - 0.5f) && (x >= -0.5f) && (x <= (float)w - 0.5f);
+}
 
+// The image sample and the label of one pixel at (y, x) of the plane whose
+// coefficients start at c and labels at l.
+__device__ __forceinline__ void sample_pixel(const float* __restrict__ c,
+                                             const int* __restrict__ l, float y, float x,
+                                             int src_h, int src_w, float& img, int& label) {
+  img = 0.0f;
+  label = 0;
+  if (!inside_label(y, x, src_h, src_w)) return;  // both outputs masked: read nothing
   const float y0f = floorf(y);
   const float x0f = floorf(x);
   const float fy = __fsub_rn(y, y0f);
@@ -73,9 +86,6 @@ warp_cubic_nearest_kernel(const float* __restrict__ coef, const int* __restrict_
   float wy[4], wx[4];
   bspline_weights(fy, wy);
   bspline_weights(fx, wx);
-
-  const long long plane = n * (long long)src_h * src_w;
-  const float* c = coef + plane;
   int cols[4];
 #pragma unroll
   for (int j = 0; j < 4; ++j) cols[j] = reflect(x0 + j - 1, src_w);
@@ -89,13 +99,41 @@ warp_cubic_nearest_kernel(const float* __restrict__ coef, const int* __restrict_
   }
   const bool inside_c = (y >= 0.0f) && (y <= (float)(src_h - 1)) &&
                         (x >= 0.0f) && (x <= (float)(src_w - 1));
-  out_img[t] = inside_c ? acc : 0.0f;
-
+  img = inside_c ? acc : 0.0f;
   const int yn = min(max(y0 + (fy >= 0.5f ? 1 : 0), 0), src_h - 1);
   const int xn = min(max(x0 + (fx >= 0.5f ? 1 : 0), 0), src_w - 1);
-  const bool inside_n = (y >= -0.5f) && (y <= (float)src_h - 0.5f) &&
-                        (x >= -0.5f) && (x <= (float)src_w - 0.5f);
-  out_lab[t] = inside_n ? __ldg(lab + plane + (long long)yn * src_w + xn) : 0;
+  label = __ldg(l + (long long)yn * src_w + xn);
+}
+
+__global__ void __launch_bounds__(kThreads)
+warp_cubic_nearest_kernel(const float* __restrict__ coef, const int* __restrict__ lab,
+                          const float* __restrict__ sy, const float* __restrict__ sx,
+                          float* __restrict__ out_img, int* __restrict__ out_lab, int src_h,
+                          int src_w, int out_h, int out_w) {
+  const int n = blockIdx.z;
+  const int ox = blockIdx.x * kTileW + threadIdx.x;
+  const long long src_plane = (long long)n * src_h * src_w;
+  float y[kPixels], x[kPixels];
+  long long t[kPixels];
+  bool valid[kPixels];
+#pragma unroll
+  for (int k = 0; k < kPixels; ++k) {
+    const int oy = blockIdx.y * kTileH + threadIdx.y + k * kRowsPerPass;
+    valid[k] = ox < out_w && oy < out_h;
+    t[k] = ((long long)n * out_h + oy) * out_w + ox;
+    y[k] = valid[k] ? __ldg(sy + t[k]) : -1.0f;  // -1 lies outside the label range
+    x[k] = valid[k] ? __ldg(sx + t[k]) : -1.0f;
+  }
+#pragma unroll
+  for (int k = 0; k < kPixels; ++k) {
+    float img;
+    int label;
+    sample_pixel(coef + src_plane, lab + src_plane, y[k], x[k], src_h, src_w, img, label);
+    if (valid[k]) {
+      out_img[t[k]] = img;
+      out_lab[t[k]] = label;
+    }
+  }
 }
 
 }  // namespace
@@ -107,13 +145,14 @@ extern "C" {
 int warp_cubic_nearest(const void* coef, const void* lab, const void* sy, const void* sx,
                        void* out_img, void* out_lab, int n, int src_h, int src_w, int out_h,
                        int out_w, void* stream) {
-  const long long total = (long long)n * out_h * out_w;
-  const unsigned blocks = (unsigned)((total + kThreads - 1) / kThreads);
-  warp_cubic_nearest_kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+  if (n <= 0 || n > 65535 || src_h <= 0 || src_w <= 0 || out_h <= 0 || out_w <= 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid((out_w + kTileW - 1) / kTileW, (out_h + kTileH - 1) / kTileH, n);
+  warp_cubic_nearest_kernel<<<grid, dim3(kTileW, kRowsPerPass), 0,
+                              static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(coef), static_cast<const int*>(lab),
       static_cast<const float*>(sy), static_cast<const float*>(sx),
-      static_cast<float*>(out_img), static_cast<int*>(out_lab), total, src_h, src_w,
-      out_h * out_w);
+      static_cast<float*>(out_img), static_cast<int*>(out_lab), src_h, src_w, out_h, out_w);
   return static_cast<int>(cudaGetLastError());
 }
 

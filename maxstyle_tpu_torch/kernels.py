@@ -38,7 +38,8 @@ _F = ctypes.c_float
 # C signature of every entry point: (source, function, argtypes)
 _SIGNATURES = {
     "ms_moments": ("maxstyle", (_P, _P, _P, _I, _I, _I, _I, _F, _P)),
-    "ms_apply": ("maxstyle", (_P, _P, _P, _P, _I, _I, _P)),
+    "ms_style_apply": ("maxstyle", (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _P, _P, _I,
+                                    _I, _I, _I, _I, _P)),
     "ms_bwd": ("maxstyle", (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P)),
     "warp_bilinear_nearest": ("warp", (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P)),
     "warp_cubic_nearest": ("warp_cubic", (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P)),

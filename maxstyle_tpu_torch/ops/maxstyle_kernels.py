@@ -6,14 +6,17 @@ the op:
 * :func:`channel_moments` — per (b, c) plane, the mean and
   sqrt(unbiased variance + eps) (replaces ``_stats_kernel``,
   ``maxstyle_pallas.py:47``, and the finishing lines ``:266-270``);
-* :func:`plane_affine` — out = scale[b,c] * x + shift[b,c]
-  (replaces ``_apply_kernel``, ``:57``);
+* :func:`style_apply` — the per-plane (scale, shift) of the MaxStyle chain,
+  folded in the kernel as :func:`_coefficients` folds it, and
+  out = scale[b,c] * x + shift[b,c] (replaces ``_coefficients``, ``:178``,
+  and ``_apply_kernel``, ``:57``);
 * :func:`plane_affine_bwd` — dx = g * scale[b,c] and, in the same pass,
   per-plane sums of g and g*x (replaces ``_bwd_kernel``, ``:62``).
 
 The whole normalize / mix / noise / gate chain folds into one affine map per
-plane (:func:`_coefficients`), and :class:`_FusedStyle` is its autograd
-Function, the counterpart of ``_fused_core``'s custom VJP. All three kernels
+plane (:func:`_coefficients`, which the apply kernel repeats), and
+:class:`_FusedStyle` is its autograd Function, the counterpart of
+``_fused_core``'s custom VJP. All three kernels
 are bound by device-memory bytes; the note in the CUDA source says how their
 design meets that bound. The two reductions run one thread-block cluster
 per plane, tiled by :func:`_plane_tiling`.
@@ -63,6 +66,17 @@ def channel_moments_plain(x: torch.Tensor, eps: float
 def plane_affine_plain(x: torch.Tensor, scale: torch.Tensor,
                        shift: torch.Tensor) -> torch.Tensor:
     return x * scale[:, :, None, None] + shift[:, :, None, None]
+
+
+def style_apply_plain(cfg: MaxStyleConfig, x, lmda, gn, bn, mu, sig, perm, gstd, bstd,
+                      gate) -> Tuple[torch.Tensor, ...]:
+    """The MaxStyle map of x [B,C,H,W] -> (out, scale, shift, mu2, sig2):
+    mu2, sig2 = mu[perm], sig[perm], (scale, shift) from
+    :func:`_coefficients` and out = x * scale + shift. lmda [B,1]; gn, bn,
+    mu, sig [B,C]; perm [B]; spreads [1,C] or [B,C]; gate [1,1]."""
+    mu2, sig2 = mu[perm], sig[perm]
+    scale, shift = _coefficients(cfg, lmda, gn, bn, mu, sig, mu2, sig2, gstd, bstd, gate)
+    return plane_affine_plain(x, scale, shift), scale, shift, mu2, sig2
 
 
 def plane_affine_bwd_plain(g: torch.Tensor, x: torch.Tensor, scale: torch.Tensor
@@ -121,16 +135,29 @@ def channel_moments(x: torch.Tensor, eps: float) -> Tuple[torch.Tensor, torch.Te
     return mu, sig
 
 
-def plane_affine(x: torch.Tensor, scale: torch.Tensor, shift: torch.Tensor) -> torch.Tensor:
-    if _on_cpu(x, scale, shift):
-        return plane_affine_plain(x, scale, shift)
+def style_apply(cfg: MaxStyleConfig, x, lmda, gn, bn, mu, sig, perm, gstd, bstd, gate
+                ) -> Tuple[torch.Tensor, ...]:
+    """The MaxStyle map in one kernel launch; same contract as
+    :func:`style_apply_plain` (mu2, sig2 and shift come back for the
+    backward pass and the checks)."""
+    if _on_cpu(x, lmda, gn, bn, mu, sig, gstd, bstd, gate):
+        return style_apply_plain(cfg, x, lmda, gn, bn, mu, sig, perm, gstd, bstd, gate)
     b, c, h, w = x.shape
-    if scale.shape != (b, c) or shift.shape != (b, c):
-        raise ValueError(f"scale/shift must be [{b}, {c}]")
+    if lmda.shape != (b, 1) or any(t.shape != (b, c) for t in (gn, bn, mu, sig)) \
+            or gstd.shape != bstd.shape or gstd.shape not in ((1, c), (b, c)) \
+            or gate.numel() != 1:
+        raise ValueError("style_apply: lmda [B,1], gn/bn/mu/sig [B,C], spreads [1,C] or "
+                         "[B,C], gate one value")
+    if perm.shape != (b,) or perm.dtype != torch.int64 or perm.device != x.device \
+            or not perm.is_contiguous():
+        raise ValueError("style_apply: perm must be a contiguous int64 [B] on x's device")
     out = torch.empty_like(x)
-    kernels.launch("ms_apply", x, scale, shift, out, b * c, h * w)
+    coefs = torch.empty((4, b, c), device=x.device, dtype=torch.float32)
+    kernels.launch("ms_style_apply", x, out, lmda, gn, bn, mu, sig, perm, gstd, bstd,
+                   c if gstd.shape[0] > 1 else 0, gate, coefs, b * c, h * w, c,
+                   int(cfg.mix_style), int(cfg.no_noise))
     kernels.LAUNCHES["maxstyle_apply"] += 1
-    return out
+    return (out, *coefs.unbind(0))
 
 
 def plane_affine_bwd(g: torch.Tensor, x: torch.Tensor, scale: torch.Tensor
@@ -173,41 +200,37 @@ def _coefficients(cfg: MaxStyleConfig, lmda, gn, bn, mu, sig, mu2, sig2,
 
 
 class _FusedStyle(torch.autograd.Function):
-    """out = plane_affine(x, scale, shift) with (scale, shift) from
-    :func:`_coefficients`. Gradients reach x, lmda (inside the clamp,
-    inclusive) and the two noise tensors; mu, sig, the spreads and the gate
-    are constants and get zero."""
+    """out = style_apply(...)'s out: x * scale + shift with (scale, shift)
+    from :func:`_coefficients`. Gradients reach x, lmda (inside the clamp,
+    inclusive) and the two noise tensors; mu, sig, perm, the spreads and
+    the gate are constants, and every input that needs no gradient gets
+    None (the custom VJP's zeros, which autograd drops)."""
 
     @staticmethod
-    def forward(ctx, cfg, x, lmda, gn, bn, mu, sig, mu2, sig2, gstd, bstd, gate):
-        scale, shift = _coefficients(cfg, lmda, gn, bn, mu, sig, mu2, sig2,
-                                     gstd, bstd, gate)
+    def forward(ctx, cfg, x, lmda, gn, bn, mu, sig, perm, gstd, bstd, gate):
+        out, scale, _, mu2, sig2 = style_apply(cfg, x, lmda, gn, bn, mu, sig, perm,
+                                               gstd, bstd, gate)
         ctx.cfg = cfg
         ctx.save_for_backward(x, lmda, scale, mu, sig, mu2, sig2, gstd, bstd, gate)
-        return plane_affine(x, scale.contiguous(), shift.contiguous())
+        return out
 
     @staticmethod
     def backward(ctx, g):
         cfg = ctx.cfg
+        need_x, need_lmda, need_gn, need_bn = ctx.needs_input_grad[1:5]
         x, lmda, scale, mu, sig, mu2, sig2, gstd, bstd, gate = ctx.saved_tensors
-        dx, sums = plane_affine_bwd(g.contiguous(), x, scale.contiguous())
+        dx, sums = plane_affine_bwd(g.contiguous(), x, scale)
         s_g = sums[:, 0, :]             # sum_hw g          [B, C]
         s_gxn = (sums[:, 1, :] - mu * s_g) / sig  # sum_hw g * x_normed
-        if cfg.no_noise:
-            d_gn = torch.zeros_like(s_g)
-            d_bn = torch.zeros_like(s_g)
-        else:
-            d_gn = gate * gstd * s_gxn
-            d_bn = gate * bstd * s_g
-        if cfg.mix_style:
+        d_lmda = d_gn = d_bn = None
+        if not cfg.no_noise:
+            d_gn = gate * gstd * s_gxn if need_gn else None
+            d_bn = gate * bstd * s_g if need_bn else None
+        if cfg.mix_style and need_lmda:
             interior = ((lmda >= 0.0) & (lmda <= 1.0)).float()
             d_lm_full = (sig2 - sig) * s_gxn + (mu2 - mu) * s_g
             d_lmda = gate * interior * d_lm_full.sum(dim=1, keepdim=True)
-        else:
-            d_lmda = torch.zeros_like(lmda)
-        z = torch.zeros_like
-        return (None, dx, d_lmda, d_gn, d_bn, z(mu), z(sig), z(mu2), z(sig2),
-                z(gstd), z(bstd), z(gate))
+        return (None, dx if need_x else None, d_lmda, d_gn, d_bn) + (None,) * 6
 
 
 def apply_maxstyle_kernels(x: torch.Tensor, params: MaxStyleParams,
@@ -230,7 +253,7 @@ def apply_maxstyle_kernels(x: torch.Tensor, params: MaxStyleParams,
         params.lmda.reshape(b, 1),
         params.gamma_noise.reshape(b, c),
         params.beta_noise.reshape(b, c),
-        mu, sig, mu[state.perm], sig[state.perm],
+        mu, sig, state.perm,
         new_state.gamma_std[:, :, 0, 0], new_state.beta_std[:, :, 0, 0],
         state.gate.reshape(1, 1))
     return out, new_state

@@ -65,9 +65,12 @@ def main() -> None:
         wall_ms = 1e3 * (time.perf_counter() - t0)
     float(metrics["loss/total"])
 
-    # device-side events only: an operator's row repeats its kernels' time
+    # device-side events only: an operator's row repeats its kernels' time,
+    # and so does a user range's on the device timeline (the optimizer's
+    # "Optimizer.step#AdamW.step")
     kernels = [e for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA and _device_us(e) > 0]
+               if e.device_type == torch.autograd.DeviceType.CUDA and _device_us(e) > 0
+               and not getattr(e, "is_user_annotation", False)]
     device_ms = sum(_device_us(e) for e in kernels) / 1e3
     steps = args.k_inner
     print(f"profile: {args.workload} on {torch.cuda.get_device_name(0)}; "

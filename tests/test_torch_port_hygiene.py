@@ -9,7 +9,7 @@ from pathlib import Path
 import pytest
 import torch
 
-from maxstyle_tpu_torch.config import ExperimentConfig
+from maxstyle_tpu_torch.config import ExperimentConfig, MaxStyleConfig
 from maxstyle_tpu_torch.flagship import flagship_solver
 from maxstyle_tpu_torch.ops import maxstyle_kernels as mk
 from maxstyle_tpu_torch.solver import TripletSegmentationSolver
@@ -53,7 +53,10 @@ def test_entry_points_raise_without_a_gpu_unless_cpu_is_asked():
 def test_kernel_wrappers_take_the_plain_path_only_for_cpu_tensors():
     x = torch.empty((2, 3, 4, 4), device="meta")
     s = torch.empty((2, 3), device="meta")
-    for call in (lambda: mk.channel_moments(x, 1e-6), lambda: mk.plane_affine(x, s, s),
+    one = torch.empty((2, 1), device="meta")
+    perm = torch.tensor([1, 0])
+    for call in (lambda: mk.channel_moments(x, 1e-6),
+                 lambda: mk.style_apply(MaxStyleConfig(), x, one, s, s, s, s, perm, s, s, one),
                  lambda: mk.plane_affine_bwd(x, x, s)):
         with pytest.raises(ValueError):
             call()
