@@ -17,9 +17,13 @@ Phases, each printing its own lines; any failure exits nonzero:
              fill_ on a one-element tensor; the style map, whose kernel folds
              its own coefficients, bit-equal in scale and shift and over two
              calls, also over every branch of the map), the bilinear warp
-             (N=10, 224 -> 192), the spline prefilter's matrix form against
-             its recursion and the cubic warp (N=10, 288 -> 224), both
-             warps bit for bit at the policy's, uniform and rim-straddling
+             (N=10, 224 -> 192; its composed entry, the main path's, bit
+             for bit at the policy's draws with the elastic gate on and
+             off, with no elastic branch and at a matrix across both rims,
+             timed beside the parent's route as its library time), the
+             spline prefilter's matrix form against its recursion and the
+             cubic warp (N=10, 288 -> 224), both warps' coordinate entries
+             bit for bit at the policy's, uniform and rim-straddling
              coordinates, and conv3x3_bn_stats at its bench's three shapes
              (timed) and at ragged shapes that reach every masked edge;
 4. reference — on a small input, the MaxStyle generation through the
@@ -72,7 +76,6 @@ LAUNCH_PATH = {"maxstyle_stats": "slice", "maxstyle_apply": "slice", "maxstyle_b
 # values and a last of 2088 on the float4 path; 101^2 into 4 ranks of 2552
 # and a last of 2545 on the scalar path)
 STYLE_RAGGED = ((3, 5, 7, 9), (2, 1, 1, 1), (4, 3, 33, 31), (2, 1, 130, 130), (1, 1, 101, 101))
-WARP_SHAPE = (10, 224, 192)   # N, padded source side, crop side
 
 SOURCES = {
     "maxstyle_stats": ("maxstyle_tpu_torch/csrc/maxstyle.cu",
@@ -363,11 +366,11 @@ def _warp_case(shape, policy_name, seed, copies):
     a grid stretched over [-2.5, H+1.5] on both axes, so that tiles straddle
     both rims."""
     import torch
+    from maxstyle_tpu_torch.bench_style import rim_coords
     from maxstyle_tpu_torch.data import augment as A
     n, H, h = shape
     gen = torch.Generator(device="cuda").manual_seed(seed)
     policy = A.get_policy(policy_name, (H, H), (h, h))
-    grid = torch.linspace(-2.5, H + 1.5, h, device="cuda")
     case = {"img": [], "lab": [], "uniform": [], "policy": [], "rim": []}
     for _ in range(copies):
         case["img"].append(torch.rand((n, H, H), generator=gen, device="cuda"))
@@ -377,17 +380,112 @@ def _warp_case(shape, policy_name, seed, copies):
                                      * (H + 3) - 2 for _ in range(2)))
         case["policy"].append(tuple(t.contiguous() for t in
                                     A.aug_coords(A.draw_aug(gen, policy, n), policy)))
-        jitter = [torch.rand((n, h, h), generator=gen, device="cuda") * 0.5 for _ in range(2)]
-        case["rim"].append((grid[None, :, None] + jitter[0], grid[None, None, :] + jitter[1]))
-    return case
+        case["rim"].append(rim_coords(gen, n, H, h))
+    return case, gen
+
+
+def _rim_inputs(oy, ox, H, h):
+    """(mat, oy, ox) of a matrix that stretches each crop over [-2.5, H+1.5]
+    on both axes, so that pixels straddle both rims."""
+    import torch
+    s = (H + 4) / (h - 1)
+    c = (H - 1) / 2.0
+    mat = torch.zeros((oy.shape[0], 2, 3), device=oy.device)
+    mat[:, 0, 0] = s
+    mat[:, 1, 1] = s
+    mat[:, 0, 2] = -2.5 - c - s * (oy.float() - c)
+    mat[:, 1, 2] = -2.5 - c - s * (ox.float() - c)
+    return mat, oy, ox
+
+
+def _bilinear_rows(rows):
+    """The bilinear warp at the headline shape. The composed entry (the main
+    path's) bit for bit against its plain version at the policy's draws with
+    the elastic gate on for even samples and off for odd ones, with no
+    elastic branch (policy ACDC_affine) and at a matrix that stretches the
+    crop over both rims; the coordinate entry bit for bit at uniform, policy
+    and rim coordinates; at every pixels-a-thread variant, the composed
+    entry on a ragged 45-column crop and the coordinate entry on an
+    unaligned view of coordinates. Timed: the composed entry at the policy's draws
+    (ms), its plain version, the parent's route (library_ms), and the
+    coordinate entry at the policy's and at uniform coordinates. The bound
+    counts the images and labels, the field's crop window, the outputs and
+    the per-sample inputs."""
+    import torch
+    from maxstyle_tpu_torch.bench_style import (WARP_POLICY, WARP_SHAPE, composed_inputs,
+                                                parent_route)
+    from maxstyle_tpu_torch.data import augment as A
+    from maxstyle_tpu_torch.ops import warp_kernels as wk
+    from maxstyle_tpu_torch.timing import copies_beyond_l2, cuda_ms
+
+    n, H, h = WARP_SHAPE
+    px = n * h * h
+    copies = copies_beyond_l2(n * H * H * 16 + px * 8)
+    case, gen = _warp_case(WARP_SHAPE, WARP_POLICY, 7, copies)
+    imgs, labs = case["img"], case["lab"]
+    comp = [composed_inputs(gen, A.get_policy(WARP_POLICY, (H, H), (h, h)), n)
+            for _ in range(copies)]
+    no_elastic = composed_inputs(gen, A.get_policy("ACDC_affine", (H, H), (h, h)), n)
+    composed_cases = {"policy": comp[0], "no_elastic": no_elastic,
+                      "rim": _rim_inputs(*comp[0][1:3], H, h)}
+
+    def composed(i, args, fn=wk.warp_bilinear_nearest_affine):
+        return fn(imgs[i], labs[i], *args[:3], (h, h), *args[3:])
+
+    checks = {}
+    for kind, args in composed_cases.items():
+        (ki, kl), (pi, pl) = (composed(0, args, f) for f in
+                              (wk.warp_bilinear_nearest_affine,
+                               wk.warp_bilinear_nearest_affine_plain))
+        checks[f"composed_{kind}"] = (float((ki - pi).abs().max()), int((kl != pl).sum()))
+    for kind in ("uniform", "policy", "rim"):
+        (ki, kl), (pi, pl) = (f(imgs[0], labs[0], *case[kind][0]) for f in
+                              (wk.warp_bilinear_nearest, wk.warp_bilinear_nearest_plain))
+        checks[f"coords_{kind}"] = (float((ki - pi).abs().max()), int((kl != pl).sum()))
+    # a ragged crop (45 columns: a scalar tail), and 48 columns given as an
+    # unaligned view of the coordinates
+    r_img = torch.rand((3, 50, 50), generator=gen, device="cuda")
+    r_lab = torch.randint(0, 4, (3, 50, 50), generator=gen, device="cuda", dtype=torch.int32)
+    r_comp = composed_inputs(gen, A.get_policy(WARP_POLICY, (50, 50), (45, 45)), 3)
+    c48 = composed_inputs(gen, A.get_policy(WARP_POLICY, (50, 50), (48, 48)), 3)
+    r_sy, r_sx = (torch.cat([torch.zeros(1, device="cuda"), t.flatten()])[1:].view(t.shape)
+                  for t in wk.compose_coords(*c48[:3], (50, 50), (48, 48), *c48[3:]))
+    for kind, (k, p) in (
+            ("composed", (wk.warp_bilinear_nearest_affine(r_img, r_lab, *r_comp[:3], (45, 45),
+                                                          *r_comp[3:]),
+                          wk.warp_bilinear_nearest_affine_plain(r_img, r_lab, *r_comp[:3],
+                                                                (45, 45), *r_comp[3:]))),
+            ("coords_unaligned", (wk.warp_bilinear_nearest(r_img, r_lab, r_sy, r_sx),
+                                  wk.warp_bilinear_nearest_plain(r_img, r_lab, r_sy, r_sx)))):
+        checks[f"ragged_{kind}"] = (float((k[0] - p[0]).abs().max()), int((k[1] != p[1]).sum()))
+    for name, (err, lab_err) in checks.items():
+        print(f"kernel warp_bilinear_nearest {name}: max abs err {err:.3e}, "
+              f"label mismatches {lab_err} (tol 0)")
+    ok = all(err == 0.0 and lab_err == 0 for err, lab_err in checks.values())
+    rows["warp_bilinear_nearest"]["shapes"].append(dict(
+        cell="headline", shape=[n, H, H, h, h], tol=0.0,
+        max_abs_err=max(e for e, _ in checks.values()),
+        label_mismatches=sum(m for _, m in checks.values()),
+        checks={k: {"max_abs_err": e, "label_mismatches": m} for k, (e, m) in checks.items()},
+        ms=cuda_ms(lambda i: composed(i, comp[i]), copies),
+        plain_ms=cuda_ms(lambda i: composed(i, comp[i], wk.warp_bilinear_nearest_affine_plain),
+                         copies),
+        library_ms=cuda_ms(lambda i: parent_route(imgs[i], labs[i], *comp[i][:3], (h, h),
+                                                  *comp[i][3:]), copies),
+        coords_entry_ms=cuda_ms(lambda i: wk.warp_bilinear_nearest(
+            imgs[i], labs[i], *case["policy"][i]), copies),
+        uniform_coords_ms=cuda_ms(lambda i: wk.warp_bilinear_nearest(
+            imgs[i], labs[i], *case["uniform"][i]), copies),
+        **_roof(n * H * H * 8 + px * 8 + px * 8 + n * (24 + 8 + 8 + 4 + 4), 40 * px)))
+    return ok
 
 
 def _warp_rows(rows):
-    """Both warps against their plain versions, bit for bit, at uniform, at
-    the main path's and at rim-straddling coordinates (the cubic warp also
-    bit-equal over two calls), timed at the main path's (the cubic warp
-    also at uniform ones); and the prefilter's matrix form against its
-    recursion at atol 1e-5."""
+    """Both warps against their plain versions, bit for bit (the bilinear
+    warp in :func:`_bilinear_rows`); the cubic warp at uniform, at the main
+    path's and at rim-straddling coordinates, also bit-equal over two calls,
+    timed at the main path's and at uniform ones; and the prefilter's
+    matrix form against its recursion at atol 1e-5."""
     from maxstyle_tpu_torch.bench_style import CUBIC_SHAPE
     from maxstyle_tpu_torch.ops import spline
     from maxstyle_tpu_torch.ops import warp_kernels as wk
@@ -404,53 +502,40 @@ def _warp_rows(rows):
             lab_err += int((kl != pl).sum())
         return img_err, lab_err
 
-    ok = True
-    # (kernel, shape, policy, float operations a pixel: taps and weights)
-    for name, shape, policy, ops in (("warp_bilinear_nearest", WARP_SHAPE,
-                                      "ACDC_affine_elastic_intensity", 20),
-                                     ("warp_cubic_nearest", CUBIC_SHAPE,
-                                      "Prostate_affine_elastic_intensity", 70)):
-        n, H, h = shape
-        px = n * h * h
-        copies = copies_beyond_l2(n * H * H * 8 + px * 8)
-        case = _warp_case(shape, policy, 7, copies)
-        labs, crd = case["lab"], case["policy"]
-        row = dict(shape=[n, H, H, h, h], tol=0.0, library_ms=None,
-                   **_roof(n * H * H * 8 + px * 8 + px * 8, ops * px))
-        if name == "warp_bilinear_nearest":
-            imgs = case["img"]
-            img_err, lab_err = mismatch(wk.warp_bilinear_nearest, wk.warp_bilinear_nearest_plain,
-                                        imgs[0], case)
-            row.update(cell="headline", ms=cuda_ms(
-                lambda i: wk.warp_bilinear_nearest(imgs[i], labs[i], *crd[i]), copies),
-                plain_ms=cuda_ms(
-                    lambda i: wk.warp_bilinear_nearest_plain(imgs[i], labs[i], *crd[i]), copies))
-        else:
-            coefs = [spline.spline_filter2d_matrix(im) for im in case["img"]]
-            pre_err = float((coefs[0] - spline.spline_filter2d(case["img"][0])).abs().max())
-            img_err, lab_err = mismatch(wk.sample_cubic_nearest, wk.sample_cubic_nearest_plain,
-                                        coefs[0], case)
-            whole_err, whole_lab = mismatch(wk.warp_cubic_nearest, wk.warp_cubic_nearest_plain,
-                                            case["img"][0], case)
-            same = all(_bit_equal(*(wk.sample_cubic_nearest(coefs[0], labs[0], *case[k][0])
-                                    for _ in range(2))) for k in ("uniform", "policy", "rim"))
-            ok &= pre_err <= 1e-5 and whole_err == 0.0 and whole_lab == 0 and same
-            row.update(cell="prostate_cubic", prefilter_matrix_vs_loop_err=pre_err,
-                       bit_equal_over_two_calls=same,
-                       prefilter_tol=1e-5, wrapper_err=whole_err, wrapper_label_mismatches=whole_lab,
-                       ms=cuda_ms(lambda i: wk.sample_cubic_nearest(coefs[i], labs[i], *crd[i]),
-                                  copies),
-                       plain_ms=cuda_ms(
-                           lambda i: wk.sample_cubic_nearest_plain(coefs[i], labs[i], *crd[i]),
-                           copies),
-                       uniform_coords_ms=cuda_ms(lambda i: wk.sample_cubic_nearest(
-                           coefs[i], labs[i], *case["uniform"][i]), copies),
-                       prefilter_ms=cuda_ms(lambda i: spline.spline_filter2d_matrix(
-                           case["img"][i]), copies))
-        row.update(max_abs_err=img_err, label_mismatches=lab_err)
-        rows[name]["shapes"].append(row)
-        ok &= img_err == 0.0 and lab_err == 0
-        del case
+    ok = _bilinear_rows(rows)
+    n, H, h = CUBIC_SHAPE
+    px = n * h * h
+    copies = copies_beyond_l2(n * H * H * 8 + px * 8)
+    case, _ = _warp_case(CUBIC_SHAPE, "Prostate_affine_elastic_intensity", 7, copies)
+    labs, crd = case["lab"], case["policy"]
+    # float operations a pixel: taps and weights
+    row = dict(shape=[n, H, H, h, h], tol=0.0, library_ms=None,
+               **_roof(n * H * H * 8 + px * 8 + px * 8, 70 * px))
+    coefs = [spline.spline_filter2d_matrix(im) for im in case["img"]]
+    pre_err = float((coefs[0] - spline.spline_filter2d(case["img"][0])).abs().max())
+    img_err, lab_err = mismatch(wk.sample_cubic_nearest, wk.sample_cubic_nearest_plain,
+                                coefs[0], case)
+    whole_err, whole_lab = mismatch(wk.warp_cubic_nearest, wk.warp_cubic_nearest_plain,
+                                    case["img"][0], case)
+    same = all(_bit_equal(*(wk.sample_cubic_nearest(coefs[0], labs[0], *case[k][0])
+                            for _ in range(2))) for k in ("uniform", "policy", "rim"))
+    ok &= pre_err <= 1e-5 and whole_err == 0.0 and whole_lab == 0 and same
+    row.update(cell="prostate_cubic", prefilter_matrix_vs_loop_err=pre_err,
+               bit_equal_over_two_calls=same,
+               prefilter_tol=1e-5, wrapper_err=whole_err, wrapper_label_mismatches=whole_lab,
+               ms=cuda_ms(lambda i: wk.sample_cubic_nearest(coefs[i], labs[i], *crd[i]),
+                          copies),
+               plain_ms=cuda_ms(
+                   lambda i: wk.sample_cubic_nearest_plain(coefs[i], labs[i], *crd[i]),
+                   copies),
+               uniform_coords_ms=cuda_ms(lambda i: wk.sample_cubic_nearest(
+                   coefs[i], labs[i], *case["uniform"][i]), copies),
+               prefilter_ms=cuda_ms(lambda i: spline.spline_filter2d_matrix(
+                   case["img"][i]), copies))
+    row.update(max_abs_err=img_err, label_mismatches=lab_err)
+    rows["warp_cubic_nearest"]["shapes"].append(row)
+    ok &= img_err == 0.0 and lab_err == 0
+    del case
     return ok
 
 
@@ -517,7 +602,8 @@ def phase_kernels():
     for row in rows.values():
         for s in row["shapes"]:
             extra = "".join(f" {k} {s[k]:.5f}" for k in
-                            ("uniform_coords_ms", "prefilter_ms", "cudnn_conv_ms",
+                            ("coords_entry_ms", "uniform_coords_ms", "prefilter_ms",
+                             "cudnn_conv_ms",
                              "ffma_bound_ms") if k in s)
             print(f"kernel {row['name']} {s['cell']} {s['shape']}: "
                   f"max abs err {s['max_abs_err']:.3e}, "

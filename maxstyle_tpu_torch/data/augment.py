@@ -12,7 +12,11 @@ with noise (V1), gamma, and a per-slice min-max.
 Random draws are split from the arithmetic: :func:`draw_aug` takes a
 ``torch.Generator`` and draws every number for a batch at once;
 :func:`aug_coords` and :func:`post_warp_intensity` are deterministic in
-those draws, so tests can feed them the numbers JAX drew.
+those draws, so tests can feed them the numbers JAX drew. The coordinates
+come in two parts: :func:`affine_matrix` and :func:`elastic_field` (the
+FFT smoothing) stay torch ops, and ``ops/warp_kernels.compose_coords``
+composes them, either as torch ops (:func:`aug_coords`) or inside the
+bilinear warp kernel (``warp_bilinear_nearest_affine``).
 """
 
 from __future__ import annotations
@@ -26,7 +30,8 @@ import numpy as np
 import torch
 
 from maxstyle_tpu_torch.ops.spline import map_coordinates_cubic
-from maxstyle_tpu_torch.ops.warp_kernels import warp_bilinear_nearest, warp_cubic_nearest
+from maxstyle_tpu_torch.ops.warp_kernels import (compose_coords, warp_bilinear_nearest_affine,
+                                                 warp_cubic_nearest)
 
 Draws = Dict[str, torch.Tensor]
 
@@ -231,13 +236,14 @@ def fft_gaussian_smooth(x: torch.Tensor, sigma) -> torch.Tensor:
     return torch.fft.irfft2(torch.fft.rfft2(x) * transfer, s=(h, w))
 
 
-def fft_gaussian_field(noise: torch.Tensor, sigma: torch.Tensor, alpha: torch.Tensor
-                       ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Gaussian-smoothed noise [n,2,H,W] times alpha [n] -> (dy, dx) [n,H,W],
-    each sample smoothed at its own sigma [n]."""
-    sm = fft_gaussian_smooth(noise, sigma[:, None, None, None])
-    a = alpha[:, None, None]
-    return sm[:, 0] * a, sm[:, 1] * a
+def elastic_field(d: Draws, p: AugPolicy) -> Tuple[torch.Tensor, ...]:
+    """The elastic branch's inputs to :func:`compose_coords`: the noise
+    [n,2,H,W] Gaussian-smoothed at each sample's own sigma, alpha [n] and
+    the float gate [n]; empty when the policy has no elastic branch."""
+    if p.elastic_prob <= 0:
+        return ()
+    sm = fft_gaussian_smooth(d["elastic_noise"], d["sigma"][:, None, None, None])
+    return sm, d["alpha"], (d["elastic_u"] < p.elastic_prob).float()
 
 
 def _fma32(a, b, c) -> np.ndarray:
@@ -316,30 +322,10 @@ def multiscale_bias_field(grids, hw: Tuple[int, int], control_points: Tuple[int,
 
 
 def aug_coords(d: Draws, policy: AugPolicy) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Source coordinates [n,h,w] of the composed inverse warp."""
-    p = policy
-    H, W = p.pad_hw
-    h, w = p.crop_hw
-    mat = affine_matrix(d, p)
-    n = mat.shape[0]
-    dev = mat.device
-    oy, ox = d["oy"], d["ox"]
-    ty = torch.arange(h, device=dev, dtype=torch.float32)[None, :, None] + oy[:, None, None]
-    tx = torch.arange(w, device=dev, dtype=torch.float32)[None, None, :] + ox[:, None, None]
-    cy, cx = (H - 1) / 2.0, (W - 1) / 2.0
-    ty_c, tx_c = ty - cy, tx - cx
-    m = mat[:, :, :, None, None]
-    sy = m[:, 0, 0] * ty_c + m[:, 0, 1] * tx_c + m[:, 0, 2] + cy
-    sx = m[:, 1, 0] * ty_c + m[:, 1, 1] * tx_c + m[:, 1, 2] + cx
-    if p.elastic_prob > 0:
-        gate = (d["elastic_u"] < p.elastic_prob).float()[:, None, None]
-        dy_full, dx_full = fft_gaussian_field(d["elastic_noise"], d["sigma"], d["alpha"])
-        rows = (oy[:, None] + torch.arange(h, device=dev))[:, :, None]
-        cols = (ox[:, None] + torch.arange(w, device=dev))[:, None, :]
-        idx = torch.arange(n, device=dev)[:, None, None]
-        sy = sy + dy_full[idx, rows, cols] * gate
-        sx = sx + dx_full[idx, rows, cols] * gate
-    return sy, sx
+    """Source coordinates [n,h,w] of the composed inverse warp, as torch
+    ops."""
+    return compose_coords(affine_matrix(d, policy), d["oy"], d["ox"], policy.pad_hw,
+                          policy.crop_hw, *elastic_field(d, policy))
 
 
 def sample_bilinear(img: torch.Tensor, ys: torch.Tensor, xs: torch.Tensor) -> torch.Tensor:
@@ -440,22 +426,29 @@ def augment_batch_inner(generator: torch.Generator, images: torch.Tensor,
     GPU, their plain versions on the CPU; labels round half up) or "gather"
     (:func:`sample_bilinear` or ``ops/spline.map_coordinates_cubic``, and
     :func:`sample_nearest`; labels round half to even). The policy's
-    ``image_interp`` picks the bilinear or the cubic image warp. ``draws``
-    pins the random numbers (see :func:`draw_aug`)."""
+    ``image_interp`` picks the bilinear or the cubic image warp; the
+    bilinear kernel composes its coordinates itself, from the affine matrix
+    and the smoothed field. ``draws`` pins the random numbers (see
+    :func:`draw_aug`)."""
+    if warp_backend not in ("kernel", "gather"):
+        raise ValueError(warp_backend)
     images = images.float().contiguous()
     if draws is None:
         draws = draw_aug(generator, policy, images.shape[0])
-    sy, sx = aug_coords(draws, policy)
     cubic = policy.image_interp == "cubic"
     if warp_backend == "kernel":
-        warp = warp_cubic_nearest if cubic else warp_bilinear_nearest
-        img, lab = warp(images, labels.to(torch.int32).contiguous(), sy.contiguous(),
-                        sx.contiguous())
-    elif warp_backend == "gather":
+        labels = labels.to(torch.int32).contiguous()
+    if warp_backend == "kernel" and not cubic:
+        img, lab = warp_bilinear_nearest_affine(
+            images, labels, affine_matrix(draws, policy), draws["oy"], draws["ox"],
+            policy.crop_hw, *elastic_field(draws, policy))
+    elif warp_backend == "kernel":
+        sy, sx = aug_coords(draws, policy)
+        img, lab = warp_cubic_nearest(images, labels, sy.contiguous(), sx.contiguous())
+    else:
+        sy, sx = aug_coords(draws, policy)
         img = map_coordinates_cubic(images, sy, sx) if cubic else sample_bilinear(images, sy, sx)
         lab = sample_nearest(labels.float(), sy, sx).to(torch.int32)
-    else:
-        raise ValueError(warp_backend)
     img = post_warp_intensity(draws, img, policy)
     return img[..., None], lab
 

@@ -42,6 +42,8 @@ _SIGNATURES = {
                                     _I, _I, _I, _I, _P)),
     "ms_bwd": ("maxstyle", (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P)),
     "warp_bilinear_nearest": ("warp", (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P)),
+    "warp_bilinear_nearest_affine": ("warp", (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                                              _I, _I, _P)),
     "warp_cubic_nearest": ("warp_cubic", (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P)),
     "conv3x3_bn_stats": ("conv_bn_stats", (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P)),
 }

@@ -21,7 +21,9 @@ Module and parameter names follow the flax names of the JAX package, so
 
 from __future__ import annotations
 
-from typing import Optional
+import contextlib
+import zlib
+from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -116,21 +118,70 @@ class Upsampler(nn.Module):
 
 
 class FixableDropout(nn.Module):
-    """Channel-wise (2D) dropout, on in "train" and "frozen" modes. No
-    shipped config enables it. It draws from torch's global generator; the
-    reference's replay of one mask across the standard and hard-example
-    passes is not ported yet."""
+    """Channel-wise (2D) dropout with one keep-mask a layer a training step,
+    on in "train" and "frozen" modes and off in "eval" (the JAX package
+    passes no dropout rng in eval). The JAX step hands one "dropout" key to
+    every pass, so each of its FixableDropout layers applies the same mask
+    to the standard pass, the MaxStyle decodes and the hard-example pass:
+    that is its replay of the reference's Fixable2DDropout. Here the step
+    draws one seed from its generator and opens :func:`dropout_step`; each
+    layer then draws its [N,C,1,1] mask once from a ``torch.Generator`` on
+    the tensor's device, seeded from that seed and the layer's qualified
+    module name (``name``, set by :func:`dropout_step`), and reuses it until
+    the step closes. Outside a step,
+    "train" and "frozen" raise, as flax's ``make_rng`` does without a
+    dropout rng."""
 
     def __init__(self, rate: float):
         super().__init__()
         self.rate = rate
+        self.name = ""
+        self._seed: Optional[int] = None
+        self._given: Optional[torch.Tensor] = None
+        self._masks: Dict[Tuple[int, int, torch.device], torch.Tensor] = {}
 
     def forward(self, x: torch.Tensor, mode: str) -> torch.Tensor:
         if self.rate == 0.0 or mode == "eval":
             return x
-        n, c = x.shape[:2]
-        keep = torch.rand((n, c, 1, 1), device=x.device) < 1.0 - self.rate
+        keep = self.keep_mask(x.shape[0], x.shape[1], x.device)
         return torch.where(keep, x / (1.0 - self.rate), torch.zeros_like(x))
+
+    def keep_mask(self, n: int, c: int, device: torch.device) -> torch.Tensor:
+        """The step's [n,c,1,1] boolean keep-mask on ``device``."""
+        key = (n, c, device)
+        if key not in self._masks and self._given is not None:
+            if tuple(self._given.shape) != (n, c, 1, 1):
+                raise ValueError(f"FixableDropout {self.name!r}: given mask of shape "
+                                 f"{tuple(self._given.shape)}, expected {(n, c, 1, 1)}")
+            self._masks[key] = self._given.to(device=device, dtype=torch.bool)
+        if key not in self._masks:
+            if self._seed is None:
+                raise RuntimeError(f"FixableDropout {self.name!r}: train and frozen modes "
+                                   "need a step's seed (dropout_step)")
+            gen = torch.Generator(device=device)
+            gen.manual_seed((self._seed + 1_000_003 * zlib.crc32(self.name.encode()))
+                            % 2 ** 63)
+            self._masks[key] = torch.rand((n, c, 1, 1), generator=gen,
+                                          device=device) < 1.0 - self.rate
+        return self._masks[key]
+
+
+@contextlib.contextmanager
+def dropout_step(nets: nn.Module, seed: Optional[int],
+                 masks: Optional[Dict[str, torch.Tensor]] = None):
+    """One training step's dropout: inside, every FixableDropout of ``nets``
+    takes its qualified module name, draws its mask from ``seed`` once, or
+    takes ``masks[name]`` (a boolean [N,C,1,1] keep-mask, to inject a
+    reference's masks), and applies it in every pass; on exit the masks are
+    dropped."""
+    layers = [(name, m) for name, m in nets.named_modules() if isinstance(m, FixableDropout)]
+    for name, m in layers:
+        m.name, m._seed, m._given, m._masks = name, seed, (masks or {}).get(name), {}
+    try:
+        yield
+    finally:
+        for _, m in layers:
+            m._seed, m._given, m._masks = None, None, {}
 
 
 class ResConvDown(nn.Module):

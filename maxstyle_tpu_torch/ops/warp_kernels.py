@@ -6,7 +6,10 @@ Counterpart of ``maxstyle_tpu/ops/warp_pallas.py``:
 * :func:`warp_bilinear_nearest` (its ``_warp_kernel``, ``warp_pallas.py:46``):
   for each output pixel, a 4-tap bilinear image sample and a nearest label
   sample at float source coordinates, with clipped indices and zero fill
-  outside;
+  outside; :func:`warp_bilinear_nearest_affine` is the same kernel with
+  the coordinates composed inside it (:func:`compose_coords`: the inverse
+  affine of the crop grid plus the gated elastic field), the augmentation's
+  route;
 * :func:`warp_cubic_nearest` (its ``_warp_cubic_kernel``, ``:184``): the
   spline prefilter (``ops/spline.spline_filter2d_matrix``), then a 16-tap
   cubic B-spline sample of the coefficients with mirrored taps
@@ -23,7 +26,7 @@ tensors it launches the kernel or raises.
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -74,6 +77,94 @@ def warp_bilinear_nearest(images: torch.Tensor, labels: torch.Tensor,
     out_img = torch.empty((n, h, w), device=images.device, dtype=torch.float32)
     out_lab = torch.empty((n, h, w), device=images.device, dtype=torch.int32)
     kernels.launch("warp_bilinear_nearest", images, labels, sy, sx, out_img, out_lab,
+                   n, hs, ws, h, w)
+    kernels.LAUNCHES["warp_bilinear_nearest"] += 1
+    return out_img, out_lab
+
+
+def compose_coords(mat: torch.Tensor, oy: torch.Tensor, ox: torch.Tensor,
+                   src_hw: Tuple[int, int], out_hw: Tuple[int, int],
+                   sm: Optional[torch.Tensor] = None, alpha: Optional[torch.Tensor] = None,
+                   gate: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Source coordinates [n,h,w] of the crop grid (offsets oy, ox [n])
+    under the inverse affine ``mat`` [n,2,3] about the source's centre,
+    plus, when ``sm`` is given, the crop window of the smoothed field
+    sm [n,2,H,W] times alpha [n] times the gate [n]. The order of the float
+    operations is the CUDA kernel's (``csrc/warp.cu``)."""
+    H, W = src_hw
+    h, w = out_hw
+    dev = mat.device
+    ty = torch.arange(h, device=dev, dtype=torch.float32)[None, :, None] + oy[:, None, None]
+    tx = torch.arange(w, device=dev, dtype=torch.float32)[None, None, :] + ox[:, None, None]
+    cy, cx = (H - 1) / 2.0, (W - 1) / 2.0
+    ty_c, tx_c = ty - cy, tx - cx
+    m = mat[:, :, :, None, None]
+    sy = m[:, 0, 0] * ty_c + m[:, 0, 1] * tx_c + m[:, 0, 2] + cy
+    sx = m[:, 1, 0] * ty_c + m[:, 1, 1] * tx_c + m[:, 1, 2] + cx
+    if sm is not None:
+        rows = (oy[:, None] + torch.arange(h, device=dev))[:, :, None]
+        cols = (ox[:, None] + torch.arange(w, device=dev))[:, None, :]
+        idx = torch.arange(mat.shape[0], device=dev)[:, None, None]
+        a, g = alpha[:, None, None], gate[:, None, None]
+        sy = sy + sm[idx, 0, rows, cols] * a * g
+        sx = sx + sm[idx, 1, rows, cols] * a * g
+    return sy, sx
+
+
+def warp_bilinear_nearest_affine_plain(images: torch.Tensor, labels: torch.Tensor,
+                                       mat: torch.Tensor, oy: torch.Tensor, ox: torch.Tensor,
+                                       out_hw: Tuple[int, int],
+                                       sm: Optional[torch.Tensor] = None,
+                                       alpha: Optional[torch.Tensor] = None,
+                                       gate: Optional[torch.Tensor] = None
+                                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`compose_coords`, then :func:`warp_bilinear_nearest_plain`.
+    Raises ValueError unless the crop window lies inside the source, where
+    the offsets are on the CPU (elsewhere the check would wait on the
+    device)."""
+    (hs, ws), (h, w) = images.shape[1:], out_hw
+    if oy.device.type == "cpu" and ox.device.type == "cpu" and bool(
+            ((oy < 0) | (oy > hs - h) | (ox < 0) | (ox > ws - w)).any()):
+        raise ValueError("warp_bilinear_nearest_affine: the crop window leaves the source")
+    sy, sx = compose_coords(mat, oy, ox, tuple(images.shape[1:]), out_hw, sm, alpha, gate)
+    return warp_bilinear_nearest_plain(images, labels, sy, sx)
+
+
+def warp_bilinear_nearest_affine(images: torch.Tensor, labels: torch.Tensor,
+                                 mat: torch.Tensor, oy: torch.Tensor, ox: torch.Tensor,
+                                 out_hw: Tuple[int, int], sm: Optional[torch.Tensor] = None,
+                                 alpha: Optional[torch.Tensor] = None,
+                                 gate: Optional[torch.Tensor] = None
+                                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The warp with its coordinates composed in the kernel; same contract
+    as :func:`warp_bilinear_nearest_affine_plain`. The crop window must lie
+    inside the source (0 <= oy <= H - h, 0 <= ox <= W - w), as the
+    augmentation's draws make it; the kernel clamps its field window to the
+    source rather than read outside it. Counts as a
+    ``warp_bilinear_nearest`` launch."""
+    given = [t for t in (images, labels, mat, oy, ox, sm, alpha, gate) if t is not None]
+    if all(t.device.type == "cpu" for t in given):
+        return warp_bilinear_nearest_affine_plain(images, labels, mat, oy, ox, out_hw, sm,
+                                                  alpha, gate)
+    name = "warp_bilinear_nearest_affine"
+    n, hs, ws = images.shape
+    h, w = out_hw
+    field = (sm, alpha, gate) if sm is not None else ()
+    kernels.check_cuda_f32(name, images, mat, *field)
+    oy, ox = oy.long().contiguous(), ox.long().contiguous()
+    if labels.device != images.device or labels.dtype != torch.int32 \
+            or not labels.is_contiguous():
+        raise TypeError(f"{name}: labels must be contiguous int32 on the images' device")
+    if oy.device != images.device or ox.device != images.device:
+        raise ValueError(f"{name}: the crop offsets must be on the images' device")
+    if labels.shape != images.shape or mat.shape != (n, 2, 3) or oy.shape != (n,) \
+            or ox.shape != (n,) or h > hs or w > ws:
+        raise ValueError(f"{name}: shape mismatch")
+    if field and (sm.shape != (n, 2, hs, ws) or alpha.shape != (n,) or gate.shape != (n,)):
+        raise ValueError(f"{name}: field shape mismatch")
+    out_img = torch.empty((n, h, w), device=images.device, dtype=torch.float32)
+    out_lab = torch.empty((n, h, w), device=images.device, dtype=torch.int32)
+    kernels.launch(name, images, labels, mat, oy, ox, sm, alpha, gate, out_img, out_lab,
                    n, hs, ws, h, w)
     kernels.LAUNCHES["warp_bilinear_nearest"] += 1
     return out_img, out_lab

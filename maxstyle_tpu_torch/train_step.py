@@ -16,11 +16,13 @@ and returns it with the metrics, as float32 tensors on the state's device.
 
 from __future__ import annotations
 
+import contextlib
 from typing import Any, Dict, Tuple
 
 import torch
 
 from maxstyle_tpu_torch.data import augment as A
+from maxstyle_tpu_torch.models.layers import dropout_step
 from maxstyle_tpu_torch.solver import TrainState, TripletSegmentationSolver
 
 LOSS_KEYS = (
@@ -49,14 +51,29 @@ def add_input_noise(clean_image: torch.Tensor, noise: torch.Tensor,
     raise ValueError(intensity_norm_type)
 
 
+def draw_dropout_seed(generator: torch.Generator) -> int:
+    """One step's dropout seed, drawn from the step's generator."""
+    return int(torch.randint(0, 2 ** 62, (), generator=generator, device=generator.device))
+
+
 def make_train_step(solver: TripletSegmentationSolver):
     """The per-iteration update ``step(state, batch, generator,
     overrides=None) -> (state, metrics)``.
 
     ``overrides`` pins the step's random draws: {"image_n": the noisy input
-    [N,H,W,1], "style_init": ({idx: MaxStyleParams}, {idx: MaxStyleState})}."""
+    [N,H,W,1], "style_init": ({idx: MaxStyleParams}, {idx: MaxStyleState}),
+    "dropout_masks": {layer name: boolean keep-mask [N,C,1,1]}}.
+
+    Dropout follows the JAX step, which splits one "dropout" key a step and
+    hands it to every pass: when some layer has a dropout rate, the step
+    draws one seed from ``generator`` (after the input noise; one host sync)
+    and every FixableDropout applies one mask, derived from that seed and
+    its name, to the standard pass, the MaxStyle decodes and the
+    hard-example pass (``models/layers.dropout_step``). Without a dropout
+    rate nothing is drawn, so the random stream is unchanged."""
     cfg = solver.config
     L = cfg.learning
+    dropout = bool(L.encoder_dropout) or bool(L.decoder_dropout)  # some layer has a rate
     requested = sorted(name for name in _UNPORTED_BRANCHES if getattr(L, name))
     if requested:
         raise NotImplementedError(f"method branches not yet ported: {requested}")
@@ -81,31 +98,34 @@ def make_train_step(solver: TripletSegmentationSolver):
         nets = state.modules
         for opt in state.optimizers.values():
             opt.zero_grad(set_to_none=True)
+        seed = draw_dropout_seed(generator) if dropout else None
 
         zero = torch.zeros((), device=clean.device)
         m = {key: zero for key in LOSS_KEYS}
-        (seg_l, img_l, gt_l, shape_l), aux = solver.standard_training(
-            nets, clean, label, image_n, mode="train")
-        standard_loss = seg_l + img_l + shape_l + gt_l
-        m["loss/standard/total"] = standard_loss
-        m["loss/standard/seg"] = seg_l
-        m["loss/standard/image"] = img_l
-        m["loss/standard/shape"] = shape_l
-        m["loss/standard/gt_shape"] = gt_l
-        total = standard_loss
+        with dropout_step(nets, seed, ov.get("dropout_masks")) if dropout \
+                else contextlib.nullcontext():
+            (seg_l, img_l, gt_l, shape_l), aux = solver.standard_training(
+                nets, clean, label, image_n, mode="train")
+            standard_loss = seg_l + img_l + shape_l + gt_l
+            m["loss/standard/total"] = standard_loss
+            m["loss/standard/seg"] = seg_l
+            m["loss/standard/image"] = img_l
+            m["loss/standard/shape"] = shape_l
+            m["loss/standard/gt_shape"] = gt_l
+            total = standard_loss
 
-        if L.max_style:
-            stylized = solver.generate_max_style_image(
-                nets, aux.z_i, reference_segmentation=label, ms_cfg=cfg.max_style,
-                generator=generator, style_init=ov.get("style_init"))
-            h_seg, h_rec, h_shape1, h_shape2 = solver.hard_example_training(
-                nets, stylized, clean, label)
-            ms_loss = h_rec + h_seg + h_shape1 + h_shape2
-            m["loss/hard/total"] = ms_loss
-            m["loss/hard/seg"] = h_seg
-            m["loss/hard/image"] = h_rec
-            m["loss/hard/shape"] = h_shape1 + h_shape2
-            total = total + ms_loss
+            if L.max_style:
+                stylized = solver.generate_max_style_image(
+                    nets, aux.z_i, reference_segmentation=label, ms_cfg=cfg.max_style,
+                    generator=generator, style_init=ov.get("style_init"))
+                h_seg, h_rec, h_shape1, h_shape2 = solver.hard_example_training(
+                    nets, stylized, clean, label)
+                ms_loss = h_rec + h_seg + h_shape1 + h_shape2
+                m["loss/hard/total"] = ms_loss
+                m["loss/hard/seg"] = h_seg
+                m["loss/hard/image"] = h_rec
+                m["loss/hard/shape"] = h_shape1 + h_shape2
+                total = total + ms_loss
 
         total.backward()
         for name, opt in state.optimizers.items():
