@@ -20,7 +20,8 @@ Phases, each printing its own lines; any failure exits nonzero:
              (N=10, 224 -> 192; its composed entry, the main path's, bit
              for bit at the policy's draws with the elastic gate on and
              off, with no elastic branch and at a matrix across both rims,
-             timed beside the parent's route as its library time), the
+             timed beside the parent's route as its library time; also at
+             the Prostate branch paths' N=10, 288 -> 224), the
              spline prefilter's matrix form against its recursion and the
              cubic warp (N=10, 288 -> 224), both warps' coordinate entries
              bit for bit at the policy's, uniform and rim-straddling
@@ -39,10 +40,17 @@ Phases, each printing its own lines; any failure exits nonzero:
              step and 1 cubic warp, 0 bilinear, and steps/s;
 7. conv_bn_fusion — the entry point ``python3 -m
              maxstyle_tpu_torch.proto_conv_bn_fusion``: its ``--check``
-             and its bench, which must launch the fused kernel.
+             and its bench, which must launch the fused kernel;
+8. slice_<branch config> — each method-branch config as shipped, at full
+             width (flagship.WORKLOADS: the seven Prostate baselines,
+             effective batch 20 at 288 -> 224, 2 classes, and ACDC LSM at
+             224 -> 192, 4 classes), one warm-up call and one timed round
+             of 2 calls of K=4 steps: finite losses, a non-zero branch
+             channel, exactly 1 bilinear warp and 0 other kernel launches
+             per step, steps/s and peak memory.
 
-Each of the last three is a path: every launch count is set to 0 just before
-it and read just after. Before the last line it prints one JSON object with
+Each of the phases from 5 on is a path: every launch count is set to 0 just
+before it and read just after. Before the last line it prints one JSON object with
 every kernel's numbers; the last line is {"ok": true, "device": {...}}.
 Without a GPU, or without the package beside it, it exits nonzero and prints
 no result.
@@ -66,6 +74,18 @@ PER_STEP = {
     "slice_prostate_cubic": {"maxstyle_stats": 21, "maxstyle_apply": 21, "maxstyle_bwd": 15,
                              "warp_cubic_nearest": 1},
 }
+# the method-branch paths: (flagship workload, the branch's loss channel)
+BRANCH_PATHS = {
+    "slice_prostate_mixstyle": ("prostate_mixstyle", "loss/hard/mix_style"),
+    "slice_prostate_dsu": ("prostate_dsu", "loss/hard/DSU"),
+    "slice_prostate_lsm": ("prostate_lsm", "loss/hard/total"),
+    "slice_prostate_rsc": ("prostate_rsc", "loss/hard/RSC"),
+    "slice_prostate_randconv": ("prostate_randconv", "loss/hard/rand_conv"),
+    "slice_prostate_adv_noise": ("prostate_adv_noise", "loss/hard/adv_noise"),
+    "slice_prostate_adv_bias": ("prostate_adv_bias", "loss/hard/adv_bias"),
+    "slice_acdc_lsm": ("acdc_lsm", "loss/hard/total"),
+}
+PER_STEP.update({path: {"warp_bilinear_nearest": 1} for path in BRANCH_PATHS})
 # which path's run each kernel's "launches" is read from
 LAUNCH_PATH = {"maxstyle_stats": "slice", "maxstyle_apply": "slice", "maxstyle_bwd": "slice",
                "warp_bilinear_nearest": "slice", "warp_cubic_nearest": "slice_prostate_cubic",
@@ -75,6 +95,8 @@ LAUNCH_PATH = {"maxstyle_stats": "slice", "maxstyle_apply": "slice", "maxstyle_b
 # a cluster with a short last rank (on 132 SMs: 130^2 into 8 ranks of 2116
 # values and a last of 2088 on the float4 path; 101^2 into 4 ranks of 2552
 # and a last of 2545 on the scalar path)
+# the bilinear warp of the Prostate branch paths: N=10, 288 -> 224
+BRANCH_WARP_SHAPE = (10, 288, 224)
 STYLE_RAGGED = ((3, 5, 7, 9), (2, 1, 1, 1), (4, 3, 33, 31), (2, 1, 130, 130), (1, 1, 101, 101))
 
 SOURCES = {
@@ -480,6 +502,56 @@ def _bilinear_rows(rows):
     return ok
 
 
+def _bilinear_prostate_row(rows):
+    """The composed bilinear warp at the branch paths' Prostate shape (N=10,
+    288 -> 224, policy Prostate_affine_elastic_intensity): bit for bit
+    against its plain version at the policy's draws (elastic gate on for
+    even samples, off for odd ones) and at a matrix across both rims, and
+    timed beside its plain version and the parent's route. Its row entry is
+    the "prostate" cell, which the row's summed numbers leave out."""
+    import torch
+    from maxstyle_tpu_torch.bench_style import composed_inputs, parent_route
+    from maxstyle_tpu_torch.data import augment as A
+    from maxstyle_tpu_torch.ops import warp_kernels as wk
+    from maxstyle_tpu_torch.timing import copies_beyond_l2, cuda_ms
+
+    n, H, h = BRANCH_WARP_SHAPE
+    px = n * h * h
+    copies = copies_beyond_l2(n * H * H * 16 + px * 8)
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    policy = A.get_policy("Prostate_affine_elastic_intensity", (H, H), (h, h))
+    imgs = [torch.rand((n, H, H), generator=gen, device="cuda") for _ in range(copies)]
+    labs = [torch.randint(0, 2, (n, H, H), generator=gen, device="cuda", dtype=torch.int32)
+            for _ in range(copies)]
+    comp = [composed_inputs(gen, policy, n) for _ in range(copies)]
+
+    def composed(i, args, fn=wk.warp_bilinear_nearest_affine):
+        return fn(imgs[i], labs[i], *args[:3], (h, h), *args[3:])
+
+    checks = {}
+    for kind, args in (("policy", comp[0]), ("rim", _rim_inputs(*comp[0][1:3], H, h)
+                                             + comp[0][3:])):
+        (ki, kl), (pi, pl) = (composed(0, args, f) for f in
+                              (wk.warp_bilinear_nearest_affine,
+                               wk.warp_bilinear_nearest_affine_plain))
+        checks[f"composed_{kind}"] = (float((ki - pi).abs().max()), int((kl != pl).sum()))
+        print(f"kernel warp_bilinear_nearest prostate composed_{kind}: max abs err "
+              f"{checks[f'composed_{kind}'][0]:.3e}, label mismatches "
+              f"{checks[f'composed_{kind}'][1]} (tol 0)")
+    rows["warp_bilinear_nearest"]["shapes"].append(dict(
+        cell="prostate", shape=[n, H, H, h, h], tol=0.0,
+        max_abs_err=max(e for e, _ in checks.values()),
+        label_mismatches=sum(m for _, m in checks.values()),
+        checks={k: {"max_abs_err": e, "label_mismatches": m} for k, (e, m) in checks.items()},
+        ms=cuda_ms(lambda i: composed(i, comp[i]), copies),
+        plain_ms=cuda_ms(lambda i: composed(i, comp[i], wk.warp_bilinear_nearest_affine_plain),
+                         copies),
+        library_ms=cuda_ms(lambda i: parent_route(imgs[i], labs[i], *comp[i][:3], (h, h),
+                                                  *comp[i][3:]), copies),
+        **_roof(n * H * H * 8 + px * 8 + px * 8 + n * (24 + 8 + 8 + 4 + 4), 40 * px)))
+    return all(err == 0.0 and lab_err == 0 for err, lab_err in checks.values())
+
+
 def _warp_rows(rows):
     """Both warps against their plain versions, bit for bit (the bilinear
     warp in :func:`_bilinear_rows`); the cubic warp at uniform, at the main
@@ -503,6 +575,7 @@ def _warp_rows(rows):
         return img_err, lab_err
 
     ok = _bilinear_rows(rows)
+    ok &= _bilinear_prostate_row(rows)
     n, H, h = CUBIC_SHAPE
     px = n * h * h
     copies = copies_beyond_l2(n * H * H * 8 + px * 8)
@@ -674,11 +747,12 @@ def phase_reference():
         fail("unexpected output shapes")
 
 
-def phase_train(path: str, solver, smi: str, desc: str):
+def phase_train(path: str, solver, smi: str, desc: str, rounds: int = 3,
+                channel: str = None):
     """Drive one training path: K_INNER-step calls of make_multi_step (one
-    warm-up, then 3 rounds of 2), with the launch counts set to 0 just
-    before and read just after. Checks finite losses and the launches per
-    step of PER_STEP[path]."""
+    warm-up, then ``rounds`` rounds of 2), with the launch counts set to 0
+    just before and read just after. Checks finite losses, a non-zero
+    ``channel`` when given, and the launches per step of PER_STEP[path]."""
     import torch
     from maxstyle_tpu_torch import kernels
     from maxstyle_tpu_torch.flagship import measure_throughput
@@ -686,20 +760,23 @@ def phase_train(path: str, solver, smi: str, desc: str):
     torch.cuda.reset_peak_memory_stats()
     kernels.reset_launches()
     t0 = time.perf_counter()
-    rate, state, metrics = measure_throughput(solver, k_inner=K_INNER, n_calls=2, n_repeats=3)
+    rate, state, metrics = measure_throughput(solver, k_inner=K_INNER, n_calls=2,
+                                              n_repeats=rounds)
     torch.cuda.synchronize()
     launches = dict(kernels.LAUNCHES)
     steps = state.step
     last = {k: float(v) for k, v in metrics.items()}
     print(f"{path}: metrics of the last call (mean of {K_INNER} steps) {json.dumps(last)}")
     print(f"{path}: launches over {steps} steps {json.dumps(launches)}")
-    print(f"{path}: {rate:.4f} steps/s (median of 3 rounds of 2 calls x {K_INNER} steps, "
+    print(f"{path}: {rate:.4f} steps/s (median of {rounds} rounds of 2 calls x {K_INNER} steps, "
           f"{desc}, float32) on {smi}; phase {time.perf_counter() - t0:.1f} s; "
           f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    if steps != K_INNER * (1 + 2 * 3):
-        fail(f"{path} ran {steps} steps, expected {K_INNER * 7}")
+    if steps != K_INNER * (1 + 2 * rounds):
+        fail(f"{path} ran {steps} steps, expected {K_INNER * (1 + 2 * rounds)}")
     if not all(math.isfinite(v) for v in last.values()):
         fail(f"non-finite loss in {path}")
+    if channel is not None and last[channel] == 0.0:
+        fail(f"{path}: the branch channel {channel} is 0")
     for name in KERNELS:
         want = PER_STEP[path].get(name, 0) * steps
         if launches[name] != want:
@@ -727,12 +804,13 @@ def phase_conv_bn_fusion():
 
 
 def main():
+    t_start = time.perf_counter()
     try:
         import torch
         import maxstyle_tpu_torch  # noqa: F401
     except ImportError as e:
         fail(f"the port is not importable beside this script: {e}")
-    from maxstyle_tpu_torch.flagship import flagship_solver, prostate_cubic_solver
+    from maxstyle_tpu_torch.flagship import WORKLOADS, flagship_solver, prostate_cubic_solver
 
     name, smi = phase_device()
     phase_build()
@@ -746,6 +824,14 @@ def main():
             "Prostate cubic, effective batch 20 @224^2"),
         "conv_bn_fusion": phase_conv_bn_fusion(),
     }
+    for path, (workload, channel) in BRANCH_PATHS.items():
+        solver = WORKLOADS[workload](device="cuda")
+        hw = solver.config.crop_hw[0]
+        paths[path] = phase_train(path, solver, smi,
+                                  f"{workload}, effective batch "
+                                  f"{solver.config.learning.batch_size} @{hw}^2",
+                                  rounds=1, channel=channel)
+        del solver
 
     out = []
     for kname, row in rows.items():
@@ -764,6 +850,7 @@ def main():
                     "ms": total("ms"), "plain_ms": total("plain_ms"),
                     "bound_ms": total("bound_ms"), "bound_by": _row_bound_by(main),
                     "library_ms": total("library_ms"), "shapes": shapes})
+    print(f"chip_smoke: every phase passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": out}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}))

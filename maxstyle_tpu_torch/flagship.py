@@ -15,11 +15,18 @@ Counterpart of ``__graft_entry__._flagship_solver`` and
 * :func:`prostate_cubic_solver` is configs/Prostate/MICCAI2022_MaxStyle.json
   with ``image_interp="cubic"``: 288^2 pads cropped to 224^2, 2 classes,
   policy Prostate_affine_elastic_intensity, the order-3 spline warp.
+* :data:`WORKLOADS` names every workload: ``headline``, ``prostate_cubic``,
+  and one a method-branch config at its published sizes —
+  ``prostate_{mixstyle,dsu,lsm,rsc,randconv,adv_noise,adv_bias}``
+  (configs/Prostate/, 288^2 -> 224^2, 2 classes), ``acdc_lsm``
+  (configs/ACDC/1500_epoch/MICCAI2021_LSM.json, 224^2 -> 192^2, 4 classes)
+  — and ``prostate_standard`` (configs/Prostate/standard_training.json), the
+  base they are compared with.
 * :func:`measure_throughput` times ``make_multi_step`` on synthetic raw
   slices, with the policy, sizes and class count of the solver's config;
-  ``python3 -m maxstyle_tpu_torch.flagship --workload headline|prostate_cubic``
-  prints its steps/s as one JSON line (K = 4, rounds of 2 calls, as
-  ``chip_smoke.py`` runs it). Run as ``PYTHONPATH=<checkout> python3
+  ``python3 -m maxstyle_tpu_torch.flagship --workload <name>`` prints its
+  steps/s as one JSON line (K = 4, rounds of 2 calls, as ``chip_smoke.py``
+  runs it). Run as ``PYTHONPATH=<checkout> python3
   maxstyle_tpu_torch/flagship.py ...`` it times another checkout's step.
 
 Every entry point runs on the GPU unless the caller passes ``device="cpu"``;
@@ -29,6 +36,7 @@ without a GPU and without that request it raises.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import time
 from pathlib import Path
 from typing import Optional
@@ -148,7 +156,26 @@ def measure_throughput(solver: TripletSegmentationSolver, k_inner: int = 16,
     return rates[len(rates) // 2], state, metrics
 
 
-WORKLOADS = {"headline": flagship_solver, "prostate_cubic": prostate_cubic_solver}
+def config_file_solver(path, device=None) -> TripletSegmentationSolver:
+    """The solver of the config file ``path`` as shipped."""
+    return config_solver(load_config(path), device)
+
+
+# the method-branch configs and the standard training they are compared with
+BRANCH_CONFIGS = {
+    "prostate_standard": CONFIGS / "Prostate" / "standard_training.json",
+    "prostate_mixstyle": CONFIGS / "Prostate" / "MixStyle.json",
+    "prostate_dsu": CONFIGS / "Prostate" / "DSU.json",
+    "prostate_lsm": CONFIGS / "Prostate" / "MICCAI2021_LSM.json",
+    "prostate_rsc": CONFIGS / "Prostate" / "RSC.json",
+    "prostate_randconv": CONFIGS / "Prostate" / "RandConv.json",
+    "prostate_adv_noise": CONFIGS / "Prostate" / "adv_noise.json",
+    "prostate_adv_bias": CONFIGS / "Prostate" / "adv_bias.json",
+    "acdc_lsm": CONFIGS / "ACDC" / "1500_epoch" / "MICCAI2021_LSM.json",
+}
+WORKLOADS = {"headline": flagship_solver, "prostate_cubic": prostate_cubic_solver,
+             **{name: functools.partial(config_file_solver, path)
+                for name, path in BRANCH_CONFIGS.items()}}
 
 
 def main(argv=None) -> None:

@@ -60,7 +60,14 @@ def conv1x1(in_ch: int, out_ch: int, bias: bool = True) -> nn.Conv2d:
 
 
 class BatchNorm(nn.Module):
-    """BatchNorm2d with torch running-stat semantics and an explicit mode."""
+    """BatchNorm2d with torch running-stat semantics and an explicit mode.
+
+    Inside :func:`live_running_stats` each "train" pass also keeps its
+    updated running statistics as tensors with their autograd graph, and
+    "eval" passes normalize with those: the JAX step threads its updated
+    statistics through the loss function, so an eval-mode forward there
+    (the AdvNoise/AdvBias consistency) differentiates through them into
+    the weights that produced the batch statistics."""
 
     def __init__(self, features: int, momentum: float = 0.1, eps: float = 1e-5):
         super().__init__()
@@ -70,17 +77,66 @@ class BatchNorm(nn.Module):
         self.bias = nn.Parameter(torch.zeros(features))
         self.register_buffer("running_mean", torch.zeros(features))
         self.register_buffer("running_var", torch.ones(features))
+        self.track_live = False
+        # (running mean, running var, eval scale, eval shift), with graph
+        self._live: Optional[Tuple[torch.Tensor, ...]] = None
+
+    def _train_live(self, x: torch.Tensor) -> torch.Tensor:
+        """A "train" pass that keeps its updated running statistics: one
+        set of batch moments both normalizes x and, Bessel-corrected in the
+        momentum update, becomes the running statistics, differentiable in
+        x; the buffers take their values. The affine map of an "eval" pass
+        with those statistics is kept beside them."""
+        n = x.numel() // x.shape[1]
+        var, mean = torch.var_mean(x, dim=(0, 2, 3), unbiased=False)
+        prev_mean, prev_var = self._live[:2] if self._live else (self.running_mean,
+                                                                 self.running_var)
+        m = self.momentum
+        run_mean = (1.0 - m) * prev_mean + m * mean
+        run_var = (1.0 - m) * prev_var + m * var * (n / max(n - 1, 1))
+        with torch.no_grad():
+            self.running_mean.copy_(run_mean)
+            self.running_var.copy_(run_var)
+        self._live = (run_mean, run_var) + self._affine(run_mean, run_var)
+        scale, shift = self._affine(mean, var)
+        return torch.addcmul(shift[:, None, None], x, scale[:, None, None])
+
+    def _affine(self, mean: torch.Tensor, var: torch.Tensor
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(scale, shift) [C] of normalizing with (mean, var), then the affine."""
+        scale = self.weight * torch.rsqrt(var + self.eps)
+        return scale, self.bias - mean * scale
 
     def forward(self, x: torch.Tensor, mode: str) -> torch.Tensor:
         if mode == "train":
+            if self.track_live:
+                return self._train_live(x)
             return F.batch_norm(x, self.running_mean, self.running_var, self.weight,
                                 self.bias, True, self.momentum, self.eps)
         if mode == "frozen":
             return F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0, self.eps)
         if mode == "eval":
+            if self._live is not None:
+                scale, shift = self._live[2:]
+                return torch.addcmul(shift[:, None, None], x, scale[:, None, None])
             return F.batch_norm(x, self.running_mean, self.running_var, self.weight,
                                 self.bias, False, 0.0, self.eps)
         raise ValueError(f"BatchNorm mode must be one of {MODES}, got {mode!r}")
+
+
+@contextlib.contextmanager
+def live_running_stats(nets: nn.Module):
+    """Inside, every BatchNorm of ``nets`` keeps its "train" passes' updated
+    running statistics with their graph, and its "eval" passes normalize
+    with them; on exit they are dropped (the buffers hold the same values)."""
+    norms = [m for m in nets.modules() if isinstance(m, BatchNorm)]
+    for m in norms:
+        m.track_live, m._live = True, None
+    try:
+        yield
+    finally:
+        for m in norms:
+            m.track_live, m._live = False, None
 
 
 def Norm2d(kind: str, features: int) -> BatchNorm:

@@ -1,7 +1,8 @@
-"""MaxStyle: adversarial style composition op (plain PyTorch, NCHW).
+"""MaxStyle: adversarial style composition op, and MixStyle / DSU (plain
+PyTorch, NCHW).
 
-Counterpart of ``maxstyle_tpu/ops/maxstyle.py``. The op is a function of an
-explicit parameter/state pair rather than a stateful module:
+Counterpart of ``maxstyle_tpu/ops/maxstyle.py``. The MaxStyle op is a
+function of an explicit parameter/state pair rather than a stateful module:
 
 * :class:`MaxStyleParams` — the learnable style tensors the inner
   adversarial loop optimizes: ``lmda`` [B,1,1,1], ``gamma_noise`` and
@@ -58,6 +59,17 @@ def _group_size(cfg: MaxStyleConfig, batch_size: int) -> int:
     return g
 
 
+def draw_beta(generator: torch.Generator, alpha: float, shape) -> torch.Tensor:
+    """Beta(alpha, alpha) draws as X / (X + Y) of two Gamma(alpha) draws from
+    ``generator`` (``torch.distributions.Beta`` takes no generator)."""
+    a = torch.full((2,) + tuple(shape), alpha, device=generator.device)
+    gam = torch._standard_gamma(a, generator=generator)
+    total = gam[0] + gam[1]
+    # both gammas may underflow to 0 at small alpha: fall back to the Beta
+    # distribution's limit, a fair coin between 0 and 1
+    return torch.where(total > 0, gam[0] / total.clamp_min(1e-38), (gam[0] >= gam[1]).float())
+
+
 def draw_maxstyle(generator: torch.Generator, batch_size: int, num_features: int,
                   cfg: MaxStyleConfig) -> Dict[str, torch.Tensor]:
     """The random part of :func:`init_maxstyle`: raw permutations (one per
@@ -69,13 +81,7 @@ def draw_maxstyle(generator: torch.Generator, batch_size: int, num_features: int
     gate_u = torch.rand((), generator=generator, device=dev)
     lmda_shape = (batch_size, 1, 1, 1)
     if cfg.always_use_beta:
-        alpha = torch.full((2,) + lmda_shape, cfg.alpha, device=dev)
-        gam = torch._standard_gamma(alpha, generator=generator)
-        total = gam[0] + gam[1]
-        # both gammas may underflow to 0 at small alpha: fall back to the
-        # Beta distribution's limit, a fair coin between 0 and 1
-        lmda = torch.where(total > 0, gam[0] / total.clamp_min(1e-38),
-                           (gam[0] >= gam[1]).float())
+        lmda = draw_beta(generator, cfg.alpha, lmda_shape)
     else:
         lmda = torch.rand(lmda_shape, generator=generator, device=dev)
     noise_shape = (batch_size, num_features, 1, 1)
@@ -185,3 +191,73 @@ def apply_maxstyle(x: torch.Tensor, params: MaxStyleParams, state: MaxStyleState
         x_aug = ((sig_mix + params.gamma_noise * new_state.gamma_std) * x_normed
                  + (mu_mix + params.beta_noise * new_state.beta_std))
     return state.gate * x_aug + (1.0 - state.gate) * x, new_state
+
+
+# ---------------------------------------------------------------------------
+# MixStyle / DSU (non-learnable style mixing; advanced/mixstyle.py:6-108)
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class MixStyleConfig:
+    p: float = 0.5
+    alpha: float = 0.1
+    eps: float = 1e-8
+    mix: str = "random"  # "random" | "crossdomain" | "gaussian" (DSU)
+
+
+def _batch_std(v: torch.Tensor) -> torch.Tensor:
+    """torch.std(v, dim=0), unbiased over the batch: [B,C,1,1] -> [1,C,1,1]."""
+    return v.detach().std(dim=0, keepdim=True, unbiased=v.shape[0] > 1)
+
+
+def draw_mixstyle(generator: torch.Generator, batch_size: int, num_features: int,
+                  cfg: MixStyleConfig) -> Dict[str, torch.Tensor]:
+    """The random part of one MixStyle/DSU call: the gate's uniform
+    ``gate_u``, then for mixing ``lmda`` [B,1,1,1] ~ Beta(alpha, alpha) and
+    the batch permutation ``perm`` (crossdomain: the reversed batch shuffled
+    within each half), for DSU the normals ``g_mu`` and ``g_sig`` [B,C,1,1]."""
+    dev = generator.device
+    b = batch_size
+    draws = {"gate_u": torch.rand((), generator=generator, device=dev)}
+    if cfg.mix == "gaussian":
+        shape = (b, num_features, 1, 1)
+        draws["g_mu"] = torch.randn(shape, generator=generator, device=dev)
+        draws["g_sig"] = torch.randn(shape, generator=generator, device=dev)
+        return draws
+    if cfg.mix not in ("random", "crossdomain"):
+        raise NotImplementedError(cfg.mix)
+    draws["lmda"] = draw_beta(generator, cfg.alpha, (b, 1, 1, 1))
+    if cfg.mix == "random":
+        draws["perm"] = torch.randperm(b, generator=generator, device=dev)
+    else:
+        rev = torch.arange(b - 1, -1, -1, device=dev)
+        half = b // 2
+        top = rev[:half][torch.randperm(half, generator=generator, device=dev)]
+        bot = rev[half:][torch.randperm(b - half, generator=generator, device=dev)]
+        draws["perm"] = torch.cat([top, bot])
+    return draws
+
+
+def apply_mixstyle(x: torch.Tensor, cfg: MixStyleConfig,
+                   draws: Dict[str, torch.Tensor]) -> torch.Tensor:
+    """One MixStyle/DSU application to x [B,C,H,W] with the draws of
+    :func:`draw_mixstyle`: a per-call Bernoulli gate (gate_u <= p), instance
+    statistics mixed with a permuted batch's (mix "random" or
+    "crossdomain"), or perturbed by N(0,1) times their spread over the batch
+    (mix "gaussian", DSU). The gate is arithmetic, gate*out + (1-gate)*x."""
+    b = x.shape[0]
+    if b <= 1:
+        return x
+    gate = (draws["gate_u"] <= cfg.p).to(x.dtype)
+    mu, sig = instance_stats(x, cfg.eps)
+    x_normed = (x - mu) / sig
+    if cfg.mix == "gaussian":
+        mu_mix = mu + draws["g_mu"] * _batch_std(mu)
+        sig_mix = sig + draws["g_sig"] * _batch_std(sig)
+    else:
+        lmda, perm = draws["lmda"], draws["perm"]
+        mu_mix = mu * (1 - lmda) + mu[perm] * lmda
+        sig_mix = sig * (1 - lmda) + sig[perm] * lmda
+    out = x_normed * sig_mix + mu_mix
+    return gate * out + (1.0 - gate) * x

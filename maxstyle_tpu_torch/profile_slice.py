@@ -1,27 +1,44 @@
 """Where the time of a training step goes, on the GPU.
 
-    python3 -m maxstyle_tpu_torch.profile_slice [--workload headline|prostate_cubic]
+    python3 -m maxstyle_tpu_torch.profile_slice [--workload NAME [NAME ...]]
                                                 [--k-inner 4] [--top 25]
+                                                [--without-live-running-stats]
 
-Warms up one ``make_multi_step`` call of the workload (``headline``: the
-flagship, effective batch 20 at 192^2; ``prostate_cubic``: the Prostate
-MaxStyle config with the cubic warp, effective batch 20 at 224^2; both
-MaxStyle n_iter=5), then traces one more call with ``torch.profiler`` and
-prints: the wall time of the traced call, the summed device time of all
-kernels and the device's busy share (device time over wall time), the
-device launches a step, the launches and device time per step of the
-port's CUDA kernels, the kernels with the most device time, and those with
-the most launches.
+For each workload of ``flagship.WORKLOADS`` (``headline``: the flagship,
+effective batch 20 at 192^2; ``prostate_cubic``: the Prostate MaxStyle
+config with the cubic warp, effective batch 20 at 224^2; both MaxStyle
+n_iter=5; the method-branch configs and ``prostate_standard``), in one
+process: warms up one ``make_multi_step`` call, runs one more with
+``torch.cuda.set_sync_debug_mode("warn")`` to count the host's waits for
+the device (each warning is one; the lines that caused them are printed),
+times two more calls untraced, then traces one more call with
+``torch.profiler`` and prints: the host syncs a step, the peak device
+memory, the steps a second of the untraced calls, the wall time of the
+traced call, the summed device time of all kernels and the device's busy
+share (device time over wall time), the device launches a step, the
+launches and device time per step of the port's CUDA kernels, the kernels
+with the most device time, those with the most launches, and the
+operators with the most host time.
+
+``--without-live-running-stats`` runs the AdvNoise/AdvBias steps without
+``layers.live_running_stats``: their eval-mode consistency then normalizes
+with the running statistics as constants, which is not the JAX step's
+gradient. It exists only to price that repair against the step without it.
 """
 
 from __future__ import annotations
 
 import argparse
+import collections
+import contextlib
+import os
 import time
+import warnings
 
 import torch
 from torch.profiler import ProfilerActivity, profile
 
+from maxstyle_tpu_torch import train_step
 from maxstyle_tpu_torch.flagship import WORKLOADS, make_raw_batches, workload_policy
 from maxstyle_tpu_torch.train_step import make_multi_step
 
@@ -38,25 +55,69 @@ def _device_us(evt) -> float:
     return 0.0
 
 
+def host_syncs(fn) -> collections.Counter:
+    """The host's waits for the device while ``fn()`` runs, by the Python
+    line that caused each: the warnings of
+    ``torch.cuda.set_sync_debug_mode("warn")``."""
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return collections.Counter(f"{os.path.relpath(w.filename)}:{w.lineno}" for w in caught
+                               if "synchroniz" in str(w.message))
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--workload", choices=sorted(WORKLOADS), default="headline")
+    ap.add_argument("--workload", nargs="+", choices=sorted(WORKLOADS), default=["headline"])
     ap.add_argument("--k-inner", type=int, default=4)
     ap.add_argument("--top", type=int, default=25)
+    ap.add_argument("--without-live-running-stats", action="store_true")
     args = ap.parse_args()
+    if args.without_live_running_stats:
+        train_step.live_running_stats = lambda nets: contextlib.nullcontext()
+        print("profile: without live running statistics (not the JAX step's gradient)")
+    for name in args.workload:
+        profile_workload(name, args.k_inner, args.top)
 
-    solver = WORKLOADS[args.workload](device="cuda")
+
+def profile_workload(workload: str, k_inner: int, top: int) -> None:
+    solver = WORKLOADS[workload](device="cuda")
     cfg = solver.config
     state = solver.init_state(0)
     policy = workload_policy(cfg)
-    raw = make_raw_batches(args.k_inner, cfg.train_batch_size, policy.pad_hw[0], 1,
+    raw = make_raw_batches(k_inner, cfg.train_batch_size, policy.pad_hw[0], 1,
                            solver.device, num_classes=cfg.segmentation_model.num_classes)
     multi = make_multi_step(solver, policy,
                             keep_orig=cfg.data.keep_orig_image_label_pair_for_training,
-                            n_inner=args.k_inner)
+                            n_inner=k_inner)
     gen = torch.Generator(device=solver.device).manual_seed(10)
+    torch.cuda.reset_peak_memory_stats()
     state, _ = multi(state, raw, gen)
     torch.cuda.synchronize()
+
+    def one_call():
+        nonlocal state
+        state, _ = multi(state, raw, gen)
+
+    syncs = host_syncs(one_call)
+    torch.cuda.synchronize()
+    steps = k_inner
+    call_ms = []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        one_call()
+        torch.cuda.synchronize()
+        call_ms.append(1e3 * (time.perf_counter() - t0))
+    print(f"profile: {workload}: {1e3 * 2 * steps / sum(call_ms):.4f} steps/s over two "
+          f"untraced calls of {steps} steps ({call_ms[0]:.3f} and {call_ms[1]:.3f} ms)")
+    print(f"profile: {workload}: host syncs {sum(syncs.values()) / steps:.2f}/step "
+          f"(set_sync_debug_mode warnings over one call of {steps} steps"
+          f"{', at ' + str(dict(syncs)) if syncs else ''}); peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -72,8 +133,7 @@ def main() -> None:
                if e.device_type == torch.autograd.DeviceType.CUDA and _device_us(e) > 0
                and not getattr(e, "is_user_annotation", False)]
     device_ms = sum(_device_us(e) for e in kernels) / 1e3
-    steps = args.k_inner
-    print(f"profile: {args.workload} on {torch.cuda.get_device_name(0)}; "
+    print(f"profile: {workload} on {torch.cuda.get_device_name(0)}; "
           f"one call of {steps} steps")
     if device_ms == 0.0:
         print("profile: the profiler reported no device time: not measured")
@@ -91,13 +151,19 @@ def main() -> None:
         print(f"profile: port kernel {name}: {calls / steps:.1f} launches/step, "
               f"{us / 1e3 / steps:.4f} ms/step device")
     kernels.sort(key=_device_us, reverse=True)
-    for e in kernels[:args.top]:
+    for e in kernels[:top]:
         print(f"profile: {_device_us(e) / 1e3 / steps:9.4f} ms/step "
               f"{e.count / steps:7.1f} calls/step  {e.key[:110]}")
     kernels.sort(key=lambda e: e.count, reverse=True)
     for e in kernels[:10]:
         print(f"profile: most launched {e.count / steps:7.1f} calls/step "
               f"{_device_us(e) / 1e3 / steps:9.4f} ms/step  {e.key[:110]}")
+    ops = sorted((e for e in prof.key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CPU),
+                 key=lambda e: e.self_cpu_time_total, reverse=True)
+    for e in ops[:10]:
+        print(f"profile: host {e.self_cpu_time_total / 1e3 / steps:9.4f} ms/step "
+              f"{e.count / steps:7.1f} calls/step  {e.key[:110]}")
 
 
 if __name__ == "__main__":

@@ -12,9 +12,10 @@ module dict ``nets`` and a BatchNorm ``mode`` (see ``models/layers.py``):
 Tensors are NCHW inside the solver; the train step converts at its
 boundary. The MaxStyle op is the fused one of ``ops/maxstyle_kernels.py``
 (CUDA kernels on the GPU, their plain versions on the CPU); the plain
-autograd op of ``ops/maxstyle.py`` is its reference in the tests.
-SGD/StepLR, STN, latent-space masking and MixStyle replay are not ported
-yet.
+autograd op of ``ops/maxstyle.py`` is its reference in the tests. The
+method branches' procedures are here too: the MixStyle/DSU encoder replay,
+latent-space hard example generation (LSM) and the full forward ``run``.
+SGD/StepLR and STN are not ported yet.
 """
 
 from __future__ import annotations
@@ -29,6 +30,7 @@ from maxstyle_tpu_torch import losses
 from maxstyle_tpu_torch.config import ExperimentConfig, MaxStyleConfig
 from maxstyle_tpu_torch.models.encoder_decoder import decoder_style_channels
 from maxstyle_tpu_torch.models.registry import NetworkSpec, build_modules, parse_network_type
+from maxstyle_tpu_torch.ops import latent_masking as lm
 from maxstyle_tpu_torch.ops import maxstyle as ms
 from maxstyle_tpu_torch.ops.intensity import intensity_norm_fn
 from maxstyle_tpu_torch.ops.maxstyle_kernels import apply_maxstyle_kernels
@@ -180,13 +182,23 @@ class TripletSegmentationSolver:
     # hard-example training (advanced_triplet…:843-889)
     # ------------------------------------------------------------------
 
-    def hard_example_training(self, nets, perturbed_image, clean_image, label):
-        """Train on the stylized image with frozen BatchNorm."""
+    def hard_example_training(self, nets, perturbed_image, clean_image, label,
+                              perturbed_seg=None, standard_input_image=None,
+                              standard_recon_image=None):
+        """Train on a hard example (a stylized, masked-code or attacked
+        image) with frozen BatchNorm; no image gives zero losses. Returns
+        (seg, recon, shape, perturbed-seg shape) losses. ``perturbed_seg``,
+        ``standard_input_image`` and ``standard_recon_image`` feed only the
+        STN's shape loss, so without an STN (the only kind ported) the last
+        loss is zero."""
+        zero = torch.zeros((), device=clean_image.device)
+        if perturbed_image is None:
+            return zero, zero, zero, zero
         norm = intensity_norm_fn(self.config.data.intensity_norm_type)
         perturbed_image = norm(perturbed_image).detach()
         (seg_loss, recon_loss, _, shape_loss), _ = self.standard_training(
             nets, clean_image, label, perturbed_image, mode="frozen")
-        return seg_loss, recon_loss, shape_loss, torch.zeros_like(seg_loss)
+        return seg_loss, recon_loss, shape_loss, zero
 
     # ------------------------------------------------------------------
     # MaxStyle generation — the inner adversarial loop
@@ -290,6 +302,80 @@ class TripletSegmentationSolver:
                 recon, _ = decode_with_styles(style_params, style_state)
         recon = recon.detach()
         return (recon, style_params) if return_style else recon
+
+    # ------------------------------------------------------------------
+    # MixStyle / DSU encoder replay (advanced_triplet…:632-670)
+    # ------------------------------------------------------------------
+
+    def generate_style_augmented_latent_code(self, nets, image, *, layers_indexes=(1, 2, 3),
+                                             mix: str = "random",
+                                             generator: torch.Generator, draws=None):
+        """Replay the encoder on ``image`` with MixStyle/DSU after the chosen
+        layers (1 = after the stem, 2..5 = after down1..4, 6 = after the
+        final activation) and BatchNorm frozen; returns (z_i, z_s). Each
+        hook draws its own numbers from ``generator`` when it runs, unless
+        ``draws`` ({hook: draws of ``ms.draw_mixstyle``}) gives them."""
+        cfg = ms.MixStyleConfig(mix=mix)
+
+        def make_hook(idx):
+            def hook(v):
+                d = (draws[idx] if draws is not None
+                     else ms.draw_mixstyle(generator, v.shape[0], v.shape[1], cfg))
+                return ms.apply_mixstyle(v, cfg, d)
+            return hook
+
+        style_fns = {i: make_hook(i) for i in layers_indexes}
+        z = nets["image_encoder"].encode(image.detach(), "frozen", style_fns)
+        return self.filter_code(nets, z, mode="frozen")
+
+    # ------------------------------------------------------------------
+    # latent-space hard example generation (LSM; advanced_triplet…:788-841)
+    # ------------------------------------------------------------------
+
+    def hard_example_generation(self, nets, clean_image, label, z_i, z_s, *, lda_cfg,
+                                generator: torch.Generator, draws=None):
+        """Mask z_i by its gradient probe and decode a corrupted image, with
+        frozen BatchNorm. Returns the perturbed image, or None when the
+        config masks no image code, with ``draws`` ({"image": draws of ``lm.draw_masking``}) pinning the
+        masking's draws.
+
+        The JAX package also masks z_s and decodes a corrupted segmentation,
+        which reaches a loss only through an STN's shape loss
+        (``hard_example_training``); the port has no STN, so it skips that
+        probe and decode."""
+        perturbed_image = None
+        if lda_cfg.mask_image_code and self.spec.has_image_recon:
+            c = lda_cfg.image_code
+            code = z_i.detach()
+            d = (draws["image"] if draws is not None else
+                 lm.draw_masking(generator, code.shape, c.mask_type, c.max_threshold))
+
+            def dec_img(v):
+                return self.decode(nets, "image_decoder", v, mode="frozen")
+
+            masked, _ = lm.perturb_latent_code(
+                code, dec_img, clean_image.detach(), num_classes=self.num_classes, draws=d,
+                perturb_type=c.mask_type, threshold=c.max_threshold, if_soft=c.if_soft,
+                random_threshold=c.random_threshold, loss_type=c.loss_name, if_detach=True)
+            with torch.no_grad():
+                perturbed_image = self.decode(nets, "image_decoder", masked, mode="frozen")
+        return perturbed_image
+
+    # ------------------------------------------------------------------
+    # full forward (advanced_triplet…run:310-328)
+    # ------------------------------------------------------------------
+
+    def run(self, nets, image, *, mode: str = "train", normalize_input: bool = False):
+        """(recon_image or None, init_predict, refined_predict) of image
+        [N,C,H,W]; without an STN the refined prediction is the initial one."""
+        if normalize_input:
+            image = intensity_norm_fn(self.config.data.intensity_norm_type)(image)
+        z_i, z_s = self.encode_image(nets, image, mode=mode)
+        y0 = self.decode(nets, "segmentation_decoder", z_s, mode=mode)
+        recon = None
+        if self.spec.has_image_recon:
+            recon = self.decode(nets, "image_decoder", z_i, mode=mode)
+        return recon, y0, y0
 
     # ------------------------------------------------------------------
     # inference (advanced_triplet…:673-691)

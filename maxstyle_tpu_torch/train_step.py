@@ -3,10 +3,10 @@
 Counterpart of ``maxstyle_tpu/train_step.py``: one call runs one iteration
 of the reference training loop (train_adv_supervised_segmentation_triplet.py
 :158-541) — input noise, standard triplet training and, with ``max_style``,
-adversarial style generation and hard-example training — then one optimizer
-step per module. The other method branches (latent_DA, rand_conv, RSC,
-mix_style, DSU, adv_noise, adv_bias) are not ported yet and raise
-``NotImplementedError``.
+adversarial style generation and hard-example training, and every other
+method branch the config enables (latent_DA, RSC, mix_style, DSU,
+rand_conv, adv_noise, adv_bias; ``train_step_branches.py``) — then one
+optimizer step per module.
 
 At the boundary the layouts are the JAX package's: ``batch["image"]`` is
 [N,H,W,1] float and ``batch["label"]`` [N,H,W] int; raw batches are [N,H,W]
@@ -21,8 +21,9 @@ from typing import Any, Dict, Tuple
 
 import torch
 
+from maxstyle_tpu_torch import train_step_branches as br
 from maxstyle_tpu_torch.data import augment as A
-from maxstyle_tpu_torch.models.layers import dropout_step
+from maxstyle_tpu_torch.models.layers import dropout_step, live_running_stats
 from maxstyle_tpu_torch.solver import TrainState, TripletSegmentationSolver
 
 LOSS_KEYS = (
@@ -32,8 +33,6 @@ LOSS_KEYS = (
     "loss/hard/rand_conv", "loss/hard/RSC", "loss/hard/mix_style",
     "loss/hard/DSU", "loss/hard/adv_noise", "loss/hard/adv_bias",
 )
-_UNPORTED_BRANCHES = ("latent_DA", "rand_conv", "RSC", "mix_style", "DSU",
-                      "adv_noise", "adv_bias")
 
 
 def add_input_noise(clean_image: torch.Tensor, noise: torch.Tensor,
@@ -62,7 +61,9 @@ def make_train_step(solver: TripletSegmentationSolver):
 
     ``overrides`` pins the step's random draws: {"image_n": the noisy input
     [N,H,W,1], "style_init": ({idx: MaxStyleParams}, {idx: MaxStyleState}),
-    "dropout_masks": {layer name: boolean keep-mask [N,C,1,1]}}.
+    "dropout_masks": {layer name: boolean keep-mask [N,C,1,1]},
+    "branch_draws": {flag: that method branch's draws} (see
+    ``train_step_branches``)}.
 
     Dropout follows the JAX step, which splits one "dropout" key a step and
     hands it to every pass: when some layer has a dropout rate, the step
@@ -74,9 +75,8 @@ def make_train_step(solver: TripletSegmentationSolver):
     cfg = solver.config
     L = cfg.learning
     dropout = bool(L.encoder_dropout) or bool(L.decoder_dropout)  # some layer has a rate
-    requested = sorted(name for name in _UNPORTED_BRANCHES if getattr(L, name))
-    if requested:
-        raise NotImplementedError(f"method branches not yet ported: {requested}")
+    # the AdvNoise/AdvBias consistency forwards run in eval mode inside the step
+    eval_in_step = bool(L.adv_noise) or bool(L.adv_bias)
 
     def step(state: TrainState, batch: Dict[str, torch.Tensor],
              generator: torch.Generator, overrides: Dict[str, Any] | None = None
@@ -102,8 +102,11 @@ def make_train_step(solver: TripletSegmentationSolver):
 
         zero = torch.zeros((), device=clean.device)
         m = {key: zero for key in LOSS_KEYS}
-        with dropout_step(nets, seed, ov.get("dropout_masks")) if dropout \
-                else contextlib.nullcontext():
+        with contextlib.ExitStack() as stack:
+            if dropout:
+                stack.enter_context(dropout_step(nets, seed, ov.get("dropout_masks")))
+            if eval_in_step:
+                stack.enter_context(live_running_stats(nets))
             (seg_l, img_l, gt_l, shape_l), aux = solver.standard_training(
                 nets, clean, label, image_n, mode="train")
             standard_loss = seg_l + img_l + shape_l + gt_l
@@ -126,6 +129,10 @@ def make_train_step(solver: TripletSegmentationSolver):
                 m["loss/hard/image"] = h_rec
                 m["loss/hard/shape"] = h_shape1 + h_shape2
                 total = total + ms_loss
+
+            total = total + br.apply_enabled_branches(
+                solver, cfg, nets, aux, clean_image=clean, image_n=image_n, label=label,
+                generator=generator, metrics=m, draws=ov.get("branch_draws"))
 
         total.backward()
         for name, opt in state.optimizers.items():

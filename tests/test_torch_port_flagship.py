@@ -10,10 +10,10 @@ import torch
 
 from maxstyle_tpu.config import ExperimentConfig as JConfig
 from maxstyle_tpu_torch.data import augment as TA
-from maxstyle_tpu_torch.flagship import (CONFIGS, PROSTATE_MAXSTYLE, config_solver,
-                                         flagship_solver, load_config, make_raw_batches,
-                                         measure_throughput, prostate_cubic_solver,
-                                         workload_policy)
+from maxstyle_tpu_torch.flagship import (BRANCH_CONFIGS, CONFIGS, PROSTATE_MAXSTYLE, WORKLOADS,
+                                         config_solver, flagship_solver, load_config,
+                                         make_raw_batches, measure_throughput,
+                                         prostate_cubic_solver, workload_policy)
 
 torch.set_num_threads(2)
 
@@ -63,3 +63,14 @@ def test_measure_throughput_runs_the_config_workload_on_cpu():
                                               n_calls=1, n_repeats=1)
     assert rate > 0 and state.step == 2
     assert all(np.isfinite(float(v)) for v in metrics.values())
+
+
+@pytest.mark.parametrize("name", sorted(BRANCH_CONFIGS))
+def test_branch_workloads_are_the_shipped_configs(name):
+    path = BRANCH_CONFIGS[name]
+    want = JConfig.from_json(str(path))
+    cfg = WORKLOADS[name](device="cpu").config
+    assert dataclasses.asdict(cfg) == dataclasses.asdict(want)
+    assert cfg.learning.batch_size == 20 and cfg.data.image_interp == "bilinear"
+    crop = 192 if name.startswith("acdc") else 224
+    assert workload_policy(cfg).crop_hw == (crop, crop)

@@ -89,3 +89,20 @@ def test_slice_two_modules_are_walked_and_their_wrappers_refuse_meta_tensors():
         with pytest.raises(ValueError):
             call()
     assert all(n == 0 for n in kernels.LAUNCHES.values())
+
+
+def test_branch_modules_are_walked_and_branch_workloads_need_a_gpu_or_cpu_asked():
+    import pkgutil
+
+    import maxstyle_tpu_torch
+    from maxstyle_tpu_torch.flagship import BRANCH_CONFIGS, WORKLOADS
+    names = {m.name for m in pkgutil.walk_packages(maxstyle_tpu_torch.__path__,
+                                                   "maxstyle_tpu_torch.")}
+    assert {"maxstyle_tpu_torch.train_step_branches", "maxstyle_tpu_torch.ops.latent_masking",
+            "maxstyle_tpu_torch.ops.randconv", "maxstyle_tpu_torch.ops.advchain"} <= names
+    assert set(BRANCH_CONFIGS) <= set(WORKLOADS)
+    for name in BRANCH_CONFIGS:
+        if not torch.cuda.is_available():
+            with pytest.raises(RuntimeError, match="device='cpu'"):
+                WORKLOADS[name]()
+        assert WORKLOADS[name](device="cpu").device.type == "cpu"

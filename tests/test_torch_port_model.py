@@ -183,3 +183,69 @@ def test_init_statistics_follow_the_jax_scheme():
     assert abs(float(bn.mean()) - 1.0) < 0.005 and abs(float(bn.std()) - 0.02) < 0.003
     up = dec.up1.up.conv.weight.detach()
     assert abs(float(up.std()) - 0.02) < 0.002 and float(dec.up1.up.conv.bias.detach().abs().max()) == 0
+
+
+@pytest.mark.parametrize("n_train", [1, 2])
+def test_live_running_stats_match_jax_differentiating_through_the_update(n_train):
+    """Inside ``live_running_stats`` a BatchNorm's "train" pass normalizes
+    and updates its running statistics from one set of batch moments, and
+    an "eval" pass differentiates through those updated statistics, as the
+    JAX step does when its loss reads the statistics it just updated. One
+    layer, ``n_train`` train passes then an eval pass, against the JAX
+    package's BatchNorm: outputs and statistics at rtol 1e-5, gradients of
+    the inputs and the affine parameters at rtol 1e-4."""
+    from maxstyle_tpu.models.layers import BatchNorm as JBN
+    from maxstyle_tpu_torch.models.layers import BatchNorm as TBN, live_running_stats
+
+    rs = np.random.RandomState(7 + n_train)
+    xs = [(rs.randn(4, 6, 5, 3) * 1.7 + 0.4).astype(np.float32) for _ in range(n_train + 1)]
+    gs = [rs.randn(4, 6, 5, 3).astype(np.float32) for _ in range(n_train + 1)]
+    scale = (1.0 + 0.1 * rs.randn(3)).astype(np.float32)
+    bias = (0.1 * rs.randn(3)).astype(np.float32)
+    stats0 = {"mean": (0.2 * rs.randn(3)).astype(np.float32),
+              "var": (1.0 + 0.3 * rs.rand(3)).astype(np.float32)}
+
+    def j_loss(xs_, scale_, bias_):
+        params = {"scale": scale_, "bias": bias_}
+        stats, ys = stats0, []
+        for x in xs_[:-1]:
+            y, upd = JBN(use_running_average=False).apply(
+                {"params": params, "batch_stats": stats}, x, mutable=["batch_stats"])
+            stats, ys = upd["batch_stats"], ys + [y]
+        ys.append(JBN(use_running_average=True).apply(
+            {"params": params, "batch_stats": stats}, xs_[-1]))
+        return sum(jnp.sum(y * g) for y, g in zip(ys, gs)), (ys, stats)
+
+    (_, (jys, jstats)), jgrads = jax.value_and_grad(j_loss, argnums=(0, 1, 2), has_aux=True)(
+        [jnp.asarray(x) for x in xs], jnp.asarray(scale), jnp.asarray(bias))
+
+    bn = TBN(3)
+    with torch.no_grad():
+        bn.weight.copy_(torch.from_numpy(scale))
+        bn.bias.copy_(torch.from_numpy(bias))
+        bn.running_mean.copy_(torch.from_numpy(stats0["mean"]))
+        bn.running_var.copy_(torch.from_numpy(stats0["var"]))
+    txs = [nchw(x).requires_grad_(True) for x in xs]
+    with live_running_stats(bn):
+        tys = [bn(x, "train") for x in txs[:-1]] + [bn(txs[-1], "eval")]
+        sum((y * nchw(g)).sum() for y, g in zip(tys, gs)).backward()
+    tight = dict(rtol=1e-5, atol=1e-5)
+    for ty, jy in zip(tys, jys):
+        np.testing.assert_allclose(ty.detach().numpy(), np.asarray(jy).transpose(0, 3, 1, 2),
+                                   **tight)
+    np.testing.assert_allclose(bn.running_mean.numpy(), np.asarray(jstats["mean"]), **tight)
+    np.testing.assert_allclose(bn.running_var.numpy(), np.asarray(jstats["var"]), **tight)
+    for tx, jg in zip(txs, jgrads[0]):
+        np.testing.assert_allclose(tx.grad.numpy(), np.asarray(jg).transpose(0, 3, 1, 2),
+                                   rtol=1e-4, atol=1e-4 * float(np.abs(jg).max()))
+    for tp, jg in ((bn.weight, jgrads[1]), (bn.bias, jgrads[2])):
+        np.testing.assert_allclose(tp.grad.numpy(), np.asarray(jg), rtol=1e-4,
+                                   atol=1e-4 * float(np.abs(jg).max()))
+    # on exit the layer is back to cuDNN's train pass, which the live one matches
+    x = nchw(xs[0])
+    with torch.no_grad():
+        plain = bn(x, "train")
+        bn.running_mean.copy_(torch.from_numpy(stats0["mean"]))
+        with live_running_stats(bn):
+            live = bn(x, "train")
+    np.testing.assert_allclose(live.numpy(), plain.numpy(), **tight)

@@ -218,12 +218,25 @@ def test_multi_step_runs_end_to_end_on_cpu():
     assert not torch.equal(w0, state.modules["image_encoder"].general_encoder.inc.conv1.weight)
 
 
-def test_unported_branches_raise():
+def test_every_jax_branch_flag_and_shipped_config_builds_a_step():
+    """make_train_step accepts each flag that the JAX package wires, alone
+    and all together, and builds the step of every shipped config."""
+    from pathlib import Path
+
+    from maxstyle_tpu.train_step_branches import SUPPORTED
+
     cfg = config()
-    cfg = dataclasses.replace(cfg, learning=dataclasses.replace(cfg.learning, rand_conv=True))
-    ts = TSolver(tconfig.ExperimentConfig.from_dict(dataclasses.asdict(cfg)), device="cpu")
-    with pytest.raises(NotImplementedError):
-        make_train_step(ts)
+    for flags in [{f} for f in sorted(SUPPORTED)] + [set(SUPPORTED)]:
+        c = dataclasses.replace(cfg, learning=dataclasses.replace(
+            cfg.learning, **{f: True for f in flags}))
+        ts = TSolver(tconfig.ExperimentConfig.from_dict(dataclasses.asdict(c)), device="cpu")
+        assert all(getattr(ts.config.learning, f) is True for f in flags)
+        assert callable(make_train_step(ts))
+    shipped = sorted((Path(__file__).resolve().parents[1] / "configs").rglob("*.json"))
+    assert len(shipped) == 16
+    for path in shipped:
+        ts = TSolver(tconfig.ExperimentConfig.from_json(str(path)), device="cpu")
+        assert callable(make_train_step(ts)), path
 
 
 
