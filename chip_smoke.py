@@ -47,7 +47,27 @@ Phases, each printing its own lines; any failure exits nonzero:
              224 -> 192, 4 classes), one warm-up call and one timed round
              of 2 calls of K=4 steps: finite losses, a non-zero branch
              channel, exactly 1 bilinear warp and 0 other kernel launches
-             per step, steps/s and peak memory.
+             per step, steps/s and peak memory;
+9. train_cli — the training CLI as a user runs it (``train.main``) on a
+             synthetic ACDC tree written from a numpy seed into a temporary
+             directory under build/ (deleted afterwards): the 15 patients of
+             acdc_split("10", 0), frames ES and ED, 10 slices of 256x216 at
+             spacing (1.5625, 1.5625, 10) with 4-class concentric labels, and
+             an OOD suite ACDC/{pid}/img.nii.gz of 5 patients. The config is
+             configs/ACDC/1500_epoch/MICCAI2022_MaxStyle.json with only
+             root_dir and n_epochs (2) changed: effective batch 20, 224 ->
+             192, MaxStyle n_iter=5, AdamW, 20 steps an epoch, with --seed 1
+             --auto_test. Checked: the run directory, the event file, the
+             scalars JSON with finite validation mIoU, model/best and
+             model/epoch_0, dataset_summary.csv; launches of exactly 21/21/15
+             MaxStyle and 1 bilinear warp a step plus 1 warp a validation
+             batch, none in the evaluation; best reloaded into a fresh
+             solver predicts bit-equal to the state it was saved from; the
+             inference CLI writes every output and launches nothing. Printed
+             beside the card's name and power limit: the second epoch's
+             steps/s and host syncs a step against measure_throughput's and
+             the flagship step's on the same config in the same process;
+             more host syncs a step than the flagship step fails.
 
 Each of the phases from 5 on is a path: every launch count is set to 0 just
 before it and read just after. Before the last line it prints one JSON object with
@@ -86,6 +106,15 @@ BRANCH_PATHS = {
     "slice_acdc_lsm": ("acdc_lsm", "loss/hard/total"),
 }
 PER_STEP.update({path: {"warp_bilinear_nearest": 1} for path in BRANCH_PATHS})
+# the train_cli phase: the shipped config, the changes made to it, and the
+# synthetic ACDC tree (slices a volume, slice height and width, spacing)
+TRAIN_CLI_CONFIG = "configs/ACDC/1500_epoch/MICCAI2022_MaxStyle.json"
+TRAIN_CLI_CHANGES = {"learning": {"n_epochs": 2}}
+ACDC_TREE = {"slices": 10, "hw": (256, 216), "spacing": (1.5625, 1.5625, 10.0),
+             "ood_patients": 5}
+# launches a step of the CLI's training step, and of a validation batch
+PER_STEP["train_cli"] = PER_STEP["slice"]
+PER_VAL_BATCH = {"warp_bilinear_nearest": 1}
 # which path's run each kernel's "launches" is read from
 LAUNCH_PATH = {"maxstyle_stats": "slice", "maxstyle_apply": "slice", "maxstyle_bwd": "slice",
                "warp_bilinear_nearest": "slice", "warp_cubic_nearest": "slice_prostate_cubic",
@@ -803,6 +832,296 @@ def phase_conv_bn_fusion():
     return launches
 
 
+def _write_acdc_tree(root, seed=0):
+    """The synthetic ACDC tree of the train_cli phase under ``root``:
+    {root}/train/{ES,ED}/{pid}_img.nrrd and _seg.nrrd for the patients of
+    acdc_split("10", 0), and {root}/ACDC/{pid}/img.nii.gz and seg.nii.gz, an
+    OOD suite. Labels are 4-class concentric discs around a jittered centre
+    on every slice; images are a level a class plus N(0, 0.05) noise.
+    Returns (train patients, validation patients)."""
+    import os
+
+    import numpy as np
+    from maxstyle_tpu_torch.data import medio
+    from maxstyle_tpu_torch.data.splits import acdc_split
+
+    split = acdc_split("10", 0)
+    rng = np.random.RandomState(seed)
+    s, (h, w) = ACDC_TREE["slices"], ACDC_TREE["hw"]
+    spacing = ACDC_TREE["spacing"]
+    yy, xx = np.mgrid[:h, :w]
+
+    def volume():
+        cy, cx = h / 2 + rng.uniform(-8, 8), w / 2 + rng.uniform(-8, 8)
+        radii = np.sort(rng.uniform(0.06, 0.16, 3)) * min(h, w)
+        r = np.hypot(yy - cy, xx - cx)
+        lab = np.zeros((s, h, w), np.uint8)
+        for k, rad in zip((3, 2, 1), radii[::-1]):
+            lab[:, r < rad * rng.uniform(0.9, 1.1)] = k
+        level = np.array([0.1, 0.8, 0.4, 0.6], np.float32)
+        img = level[lab] + 0.05 * rng.randn(s, h, w).astype(np.float32)
+        return img.astype(np.float32), lab
+
+    for pid in sorted(set(split["train"] + split["validate"])):
+        for frame in ("ES", "ED"):
+            d = os.path.join(root, "train", frame)
+            os.makedirs(d, exist_ok=True)
+            img, lab = volume()
+            medio.write_nrrd(os.path.join(d, f"{pid}_img.nrrd"), img, spacing, compress=False)
+            medio.write_nrrd(os.path.join(d, f"{pid}_seg.nrrd"), lab, spacing, compress=False)
+    for i in range(ACDC_TREE["ood_patients"]):
+        d = os.path.join(root, "ACDC", f"patient{i:03d}")
+        os.makedirs(d)
+        img, lab = volume()
+        medio.write_nifti(os.path.join(d, "img.nii.gz"), img, spacing)
+        medio.write_nifti(os.path.join(d, "seg.nii.gz"), lab, spacing)
+    return split["train"], split["validate"]
+
+
+def _flagship_syncs(solver):
+    """Host syncs a step of the flagship path (make_multi_step on synthetic
+    raw slices of the solver's config, K_INNER steps a call), counted by
+    profile_slice.host_syncs over one call after a warm-up call."""
+    import torch
+    from maxstyle_tpu_torch.flagship import make_raw_batches, workload_policy
+    from maxstyle_tpu_torch.profile_slice import host_syncs
+    from maxstyle_tpu_torch.train_step import make_multi_step
+
+    cfg = solver.config
+    policy = workload_policy(cfg)
+    state = solver.init_state(0)
+    raw = make_raw_batches(K_INNER, cfg.train_batch_size, policy.pad_hw[0], 1, solver.device,
+                           num_classes=cfg.segmentation_model.num_classes)
+    multi = make_multi_step(solver, policy,
+                            keep_orig=cfg.data.keep_orig_image_label_pair_for_training,
+                            n_inner=K_INNER)
+    gen = torch.Generator(device=solver.device).manual_seed(10)
+    multi(state, raw, gen)
+    torch.cuda.synchronize()
+    syncs = host_syncs(lambda: multi(state, raw, gen))
+    torch.cuda.synchronize()
+    return sum(syncs.values()) / K_INNER, dict(syncs)
+
+
+class _CliProbe:
+    """What the train_cli phase observes inside ``train.main``, through
+    wrappers of the CLI's step factory, checkpoint writer and auto_test:
+    the steps run, the second epoch's wall time and host syncs (from a
+    synchronize before its first step to one after its last), a copy of
+    the modules at each save of 'best', and the launches made during the
+    evaluation."""
+
+    def __init__(self, steps_per_epoch):
+        self.steps_per_epoch = steps_per_epoch
+        self.steps = 0
+        self.epoch2_s = None
+        self.syncs = None
+        self.best_copy = None
+        self.eval_launches = None
+
+    def wrap_step_factory(self, factory):
+        import os
+        import warnings
+
+        import torch
+        from maxstyle_tpu_torch.profile_slice import is_sync_warning
+
+        def make(*args, **kwargs):
+            step = factory(*args, **kwargs)
+            window = {}
+
+            def probed(*a, **kw):
+                first = self.steps == self.steps_per_epoch
+                last = self.steps == 2 * self.steps_per_epoch - 1
+                if first:
+                    torch.cuda.synchronize()
+                    window["cm"] = warnings.catch_warnings(record=True)
+                    window["caught"] = window["cm"].__enter__()
+                    warnings.simplefilter("always")
+                    torch.cuda.set_sync_debug_mode("warn")
+                    window["t0"] = time.perf_counter()
+                out = step(*a, **kw)
+                self.steps += 1
+                if last:
+                    torch.cuda.set_sync_debug_mode("default")
+                    window["cm"].__exit__(None, None, None)
+                    torch.cuda.synchronize()
+                    self.epoch2_s = time.perf_counter() - window["t0"]
+                    self.syncs = [f"{os.path.relpath(w.filename)}:{w.lineno}"
+                                  for w in window["caught"] if is_sync_warning(w)]
+                return out
+            return probed
+        return make
+
+    def wrap_save(self, save):
+        def probed(directory, name, state, *a, **kw):
+            path = save(directory, name, state, *a, **kw)
+            if name == "best":
+                self.best_copy = {k: {n: t.detach().clone() for n, t in m.state_dict().items()}
+                                  for k, m in state.modules.items()}
+            return path
+        return probed
+
+    def wrap_auto_test(self, auto_test):
+        from maxstyle_tpu_torch import kernels
+
+        def probed(*a, **kw):
+            before = dict(kernels.LAUNCHES)
+            rows = auto_test(*a, **kw)
+            self.eval_launches = {k: kernels.LAUNCHES[k] - before[k] for k in before}
+            return rows
+        return probed
+
+
+def phase_train_cli(smi: str):
+    """The training CLI end to end on the card (see the module docstring,
+    phase 9), then the inference CLI on the OOD suite."""
+    import os
+    import shutil
+    import tempfile
+
+    import torch
+    from maxstyle_tpu_torch import evaluate, infer, kernels, train
+    from maxstyle_tpu_torch.config import ExperimentConfig
+    from maxstyle_tpu_torch.data import augment as A
+    from maxstyle_tpu_torch.data.datasets import HostBatchLoader
+    from maxstyle_tpu_torch.flagship import config_solver, measure_throughput
+    from maxstyle_tpu_torch.utils import checkpoint as ckpt
+
+    t_phase = time.perf_counter()
+    root = os.path.dirname(os.path.abspath(__file__))
+    os.makedirs(os.path.join(root, "build"), exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="train_cli_", dir=os.path.join(root, "build"))
+    try:
+        train_pids, val_pids = _write_acdc_tree(tmp)
+        with open(os.path.join(root, TRAIN_CLI_CONFIG)) as f:
+            raw_cfg = json.load(f)
+        raw_cfg["data"]["root_dir"] = os.path.join(tmp, "train")
+        for block, changes in TRAIN_CLI_CHANGES.items():
+            raw_cfg[block].update(changes)
+        cfg_path = os.path.join(tmp, os.path.basename(TRAIN_CLI_CONFIG))
+        with open(cfg_path, "w") as f:
+            json.dump(raw_cfg, f)
+        cfg = ExperimentConfig.from_dict(raw_cfg)
+        n_epochs, batch = cfg.learning.n_epochs, cfg.learning.batch_size
+        frames, slices = len(cfg.data.frame), ACDC_TREE["slices"]
+        steps_per_epoch = len(train_pids) * frames * slices // cfg.train_batch_size
+        val_batches = -(-len(val_pids) * frames * slices // batch)
+
+        probe = _CliProbe(steps_per_epoch)
+        patches = [(train, "make_fused_train_step", probe.wrap_step_factory),
+                   (ckpt, "save_checkpoint", probe.wrap_save),
+                   (evaluate, "auto_test", probe.wrap_auto_test)]
+        saved = [(mod, name, getattr(mod, name)) for mod, name, _ in patches]
+        for mod, name, wrap in patches:
+            setattr(mod, name, wrap(getattr(mod, name)))
+        save_dir = os.path.join(tmp, "saved")
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        try:
+            train.main(["--json_config_path", cfg_path, "--save_dir", save_dir,
+                        "--data_setting", "10", "--cval", "0", "--seed", "1", "--auto_test",
+                        "--test_root_dir", tmp])
+        finally:
+            for mod, name, orig in saved:
+                setattr(mod, name, orig)
+        torch.cuda.synchronize()
+        cli_s = time.perf_counter() - t0
+        launches = dict(kernels.LAUNCHES)
+
+        # the run directory
+        config_name = os.path.splitext(os.path.basename(cfg_path))[0]
+        run_dir = os.path.join(save_dir, f"train_ACDC_10_n_cls_{cfg.segmentation_model.num_classes}",
+                               config_name, "0")
+        log_dir, model_dir = os.path.join(run_dir, "log"), os.path.join(run_dir, "model")
+        need = [os.path.join(run_dir, "config.json"), os.path.join(model_dir, "best", "state.pt"),
+                os.path.join(model_dir, "best", "meta.json"),
+                os.path.join(model_dir, "epoch_0", "state.pt"),
+                os.path.join(log_dir, f"{config_name}_0.json"),
+                os.path.join(model_dir, "report", "dataset_summary.csv"),
+                os.path.join(model_dir, "report", "ACDC", "iter_1_detailed.csv")]
+        missing = [p for p in need if not os.path.exists(p)]
+        events = [f for f in os.listdir(log_dir) if f.startswith("events.out.tfevents.")]
+        if missing or not events:
+            fail(f"train_cli: missing from the run directory: {missing or 'the event file'}")
+        with open(os.path.join(log_dir, f"{config_name}_0.json")) as f:
+            history = json.load(f)
+        ious = [h["val_iou"] for h in history]
+        with open(os.path.join(model_dir, "report", "dataset_summary.csv")) as f:
+            summary = f.read().splitlines()
+        print(f"train_cli: {probe.steps} steps in {n_epochs} epochs, validation mIoU {ious}, "
+              f"train.main {cli_s:.1f} s; dataset_summary.csv: {len(summary) - 1} row(s) of "
+              f"{len(summary[0].split(','))} columns, first fields {summary[-1].split(',')[:3]}")
+        if len(ious) != n_epochs or not all(math.isfinite(v) for v in ious):
+            fail(f"train_cli: validation mIoU {ious} is not one finite value an epoch")
+        if len(summary) != 2 or not summary[1].startswith("ACDC,"):
+            fail(f"train_cli: dataset_summary.csv should hold one ACDC row, got {summary}")
+
+        # launches: a step's, plus a validation batch's, and none in the evaluation
+        steps = n_epochs * steps_per_epoch
+        print(f"train_cli: launches over {steps} steps and {n_epochs * val_batches} validation "
+              f"batches {json.dumps(launches)}; during the evaluation "
+              f"{json.dumps(probe.eval_launches)}")
+        if probe.steps != steps:
+            fail(f"train_cli ran {probe.steps} steps, expected {steps}")
+        for name in KERNELS:
+            want = (PER_STEP["train_cli"].get(name, 0) * steps
+                    + PER_VAL_BATCH.get(name, 0) * n_epochs * val_batches)
+            if launches[name] != want:
+                fail(f"train_cli: {name} launched {launches[name]} times, expected {want}")
+        if probe.eval_launches is None or any(probe.eval_launches.values()):
+            fail(f"train_cli: the evaluation launched port kernels: {probe.eval_launches}")
+
+        # best, reloaded into a fresh solver, against the state it was saved from
+        val_set = train.build_datasets(cfg, "10", 0)[1]
+        raw = train.to_device(next(iter(HostBatchLoader(val_set, batch, drop_last=False,
+                                                         shuffle=False))), torch.device("cuda"))
+        x, _ = A.norm_batch(raw["image"], raw["label"], cfg.crop_hw)
+        fresh = config_solver(cfg, "cuda")
+        kept = fresh.init_state(0)
+        for k, sd in probe.best_copy.items():
+            kept.modules[k].load_state_dict(sd, strict=True)
+        loaded, meta = ckpt.load_checkpoint(model_dir, "best", fresh.init_state(0))
+        a, b = fresh.predict(kept.modules, x), fresh.predict(loaded.modules, x)
+        same = torch.equal(a, b) and torch.equal(a.argmax(-1), b.argmax(-1))
+        print(f"train_cli: best (epoch {meta['epoch']}, mIoU {meta['best_score']:.4f}) reloaded: "
+              f"logits on a validation batch {tuple(a.shape)} bit-equal {same}")
+        if not same:
+            fail("train_cli: the reloaded best checkpoint predicts otherwise than the saved state")
+
+        # the inference CLI on the OOD suite
+        kernels.reset_launches()
+        out_dir = os.path.join(tmp, "predictions")
+        infer.main(["--json_config_path", cfg_path, "--ckpt_dir", model_dir, "--ckpt", "best",
+                    "--input_dir", os.path.join(tmp, "ACDC"), "--out_dir", out_dir,
+                    "--uncertainty"])
+        outs = sorted(os.listdir(out_dir))
+        want_outs = sorted(f"patient{i:03d}_{kind}.nrrd" for i in range(ACDC_TREE["ood_patients"])
+                           for kind in ("pred", "entropy"))
+        if outs != want_outs or any(kernels.LAUNCHES.values()):
+            fail(f"train_cli: inference wrote {outs} and launched {dict(kernels.LAUNCHES)}")
+        print(f"train_cli: inference wrote {len(outs)} files, no port kernel launched")
+
+        # the second epoch against the flagship path on the same config
+        cli_rate = steps_per_epoch / probe.epoch2_s
+        cli_syncs = len(probe.syncs) / steps_per_epoch
+        solver = config_solver(cfg, "cuda")
+        flag_rate, _, _ = measure_throughput(solver, k_inner=K_INNER, n_calls=2, n_repeats=2)
+        flag_syncs, flag_where = _flagship_syncs(solver)
+        where = {k: probe.syncs.count(k) for k in sorted(set(probe.syncs))}
+        print(f"train_cli: second epoch {cli_rate:.4f} steps/s, {cli_syncs:.2f} host syncs a step "
+              f"(at {where}); measure_throughput on the same config {flag_rate:.4f} steps/s "
+              f"(median of 2 rounds of 2 calls x {K_INNER} steps), flagship step "
+              f"{flag_syncs:.2f} host syncs a step (at {flag_where}); on {smi}; "
+              f"phase {time.perf_counter() - t_phase:.1f} s")
+        if cli_syncs > flag_syncs:
+            fail(f"train_cli: {cli_syncs} host syncs a step, more than the flagship step's "
+                 f"{flag_syncs}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return launches
+
+
 def main():
     t_start = time.perf_counter()
     try:
@@ -832,6 +1151,7 @@ def main():
                                   f"{solver.config.learning.batch_size} @{hw}^2",
                                   rounds=1, channel=channel)
         del solver
+    paths["train_cli"] = phase_train_cli(smi)
 
     out = []
     for kname, row in rows.items():

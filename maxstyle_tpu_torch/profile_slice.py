@@ -55,6 +55,14 @@ def _device_us(evt) -> float:
     return 0.0
 
 
+def is_sync_warning(w: warnings.WarningMessage) -> bool:
+    """Whether a warning recorded under ``set_sync_debug_mode("warn")`` is a
+    host sync, and not the note, given once a process when the mode is first
+    set, that the mode is a prototype."""
+    text = str(w.message)
+    return "synchroniz" in text and "prototype feature" not in text
+
+
 def host_syncs(fn) -> collections.Counter:
     """The host's waits for the device while ``fn()`` runs, by the Python
     line that caused each: the warnings of
@@ -67,7 +75,7 @@ def host_syncs(fn) -> collections.Counter:
         finally:
             torch.cuda.set_sync_debug_mode("default")
     return collections.Counter(f"{os.path.relpath(w.filename)}:{w.lineno}" for w in caught
-                               if "synchroniz" in str(w.message))
+                               if is_sync_warning(w))
 
 
 def main() -> None:

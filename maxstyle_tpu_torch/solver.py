@@ -382,10 +382,13 @@ class TripletSegmentationSolver:
     # ------------------------------------------------------------------
 
     @torch.no_grad()
-    def predict(self, nets, image, *, softmax: bool = False,
+    def predict(self, nets, image, *, softmax: bool = False, n_iter: int = 1,
                 normalize_input: bool = True):
         """Eval-mode forward of image [N,H,W,C] -> logits (or probabilities)
-        [N,H,W,num_classes]."""
+        [N,H,W,num_classes]. ``n_iter`` > 1 asks the JAX package's predict
+        for the STN's refinement; the port has no STN (the registry refuses
+        STN networks), so the output is the segmentation decoder's for every
+        ``n_iter``."""
         x = image.permute(0, 3, 1, 2).float()
         if normalize_input:
             x = intensity_norm_fn(self.config.data.intensity_norm_type)(x)

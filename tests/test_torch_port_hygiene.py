@@ -106,3 +106,56 @@ def test_branch_modules_are_walked_and_branch_workloads_need_a_gpu_or_cpu_asked(
             with pytest.raises(RuntimeError, match="device='cpu'"):
                 WORKLOADS[name]()
         assert WORKLOADS[name](device="cpu").device.type == "cpu"
+
+
+# libraries the JAX package's host layer imports and the GPU machine lacks
+ABSENT_ON_THE_GPU_MACHINE = ("sklearn", "pandas", "orbax")
+ABSENT_IMPORT = re.compile(r"^\s*(import|from)\s+(sklearn|pandas|orbax)\b", re.MULTILINE)
+
+
+def test_no_package_file_imports_sklearn_pandas_or_orbax():
+    for p in sorted(PACKAGE.rglob("*.py")) + [ROOT / "chip_smoke.py"]:
+        for i, line in enumerate(p.read_text().splitlines(), 1):
+            assert not ABSENT_IMPORT.search(line), f"{p.relative_to(ROOT)}:{i}: {line.strip()}"
+    code = ("import sys, importlib, pkgutil, maxstyle_tpu_torch\n"
+            "for m in pkgutil.walk_packages(maxstyle_tpu_torch.__path__, 'maxstyle_tpu_torch.'):\n"
+            "    importlib.import_module(m.name)\n"
+            f"bad = sorted(n for n in sys.modules if n.split('.')[0] in {ABSENT_ON_THE_GPU_MACHINE!r})\n"
+            "assert not bad, bad\n")
+    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True,
+                       timeout=300)
+    assert r.returncode == 0, r.stdout + r.stderr
+
+
+def test_cli_and_host_data_modules_are_walked():
+    import pkgutil
+
+    import maxstyle_tpu_torch
+    names = {m.name for m in pkgutil.walk_packages(maxstyle_tpu_torch.__path__,
+                                                   "maxstyle_tpu_torch.")}
+    assert {"maxstyle_tpu_torch.train", "maxstyle_tpu_torch.evaluate", "maxstyle_tpu_torch.infer",
+            "maxstyle_tpu_torch.metrics", "maxstyle_tpu_torch.native",
+            "maxstyle_tpu_torch.data.medio", "maxstyle_tpu_torch.data.splits",
+            "maxstyle_tpu_torch.data.datasets", "maxstyle_tpu_torch.data.prefetch",
+            "maxstyle_tpu_torch.utils.checkpoint", "maxstyle_tpu_torch.utils.tb_events",
+            "maxstyle_tpu_torch.utils.postprocess",
+            "maxstyle_tpu_torch.utils.uncertainty"} <= names
+
+
+def test_train_and_infer_clis_raise_without_a_gpu_unless_cpu_is_asked(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present: the CLIs run on it")
+    from maxstyle_tpu_torch import infer, train
+    config = str(ROOT / "configs" / "ACDC" / "1500_epoch" / "MICCAI2022_MaxStyle.json")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        train.main(["--json_config_path", config, "--save_dir", str(tmp_path / "saved"),
+                    "--no_train"])
+    assert not (tmp_path / "saved").exists()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        infer.main(["--json_config_path", config, "--input_dir", str(tmp_path),
+                    "--out_dir", str(tmp_path / "out")])
+    # asked for the CPU, --no_train without --auto_test builds the run directory only
+    train.main(["--json_config_path", config, "--save_dir", str(tmp_path / "saved"),
+                "--no_train", "--device", "cpu"])
+    assert (tmp_path / "saved" / "train_ACDC_10_n_cls_4" / "MICCAI2022_MaxStyle" / "0"
+            / "config.json").exists()
