@@ -50,7 +50,7 @@ Phases, each printing its own lines; any failure exits nonzero:
              per step, steps/s and peak memory;
 9. train_cli — the training CLI as a user runs it (``train.main``) on a
              synthetic ACDC tree written from a numpy seed into a temporary
-             directory under build/ (deleted afterwards): the 15 patients of
+             directory under build/: the 15 patients of
              acdc_split("10", 0), frames ES and ED, 10 slices of 256x216 at
              spacing (1.5625, 1.5625, 10) with 4-class concentric labels, and
              an OOD suite ACDC/{pid}/img.nii.gz of 5 patients. The config is
@@ -68,8 +68,31 @@ Phases, each printing its own lines; any failure exits nonzero:
              steps/s and host syncs a step against measure_throughput's and
              the flagship step's on the same config in the same process;
              more host syncs a step than the flagship step fails.
+10. device_resident — the same config trained from the tree's training
+             split held on the card (``data/device_data.py``): the slices
+             uploaded once, one warm-up call, one call counting the host
+             syncs and 3 timed calls without instrumentation, of K=4 steps
+             each of make_device_train_loop, each step drawing its slices on
+             the card. Checked: exactly 21/21/15 MaxStyle and 1 bilinear warp
+             launches a step, finite losses, every parameter tensor
+             changed, no more host syncs a step than the flagship step's.
+             Printed: steps/s beside train_cli's measure_throughput, the
+             resident bytes and the peak memory.
+11. reference_import — seeded state dicts in the reference's naming at
+             the headline widths (image_encoder, segmentation_decoder with
+             NN up, image_decoder with Conv2 up) saved as .pth files, then:
+             train.main --torch_ckpt_dir for 1 epoch (the weights before its
+             first step equal the files' tensors bit for bit, the transposed
+             convs unflipped; 21/21/15/1 launches a step and 1 warp a
+             validation batch); infer.main --torch_ckpt_dir (no launch);
+             demo_generate_styles --n_iter 5 at 192^2, 8 samples (21/21/15
+             launches in each of its 2 generation calls, the PNG decodes);
+             artefacts.main (numpy, on the host) on the OOD suite and
+             evaluate(save_top_k=2) on its RandomMotion copy (4 panels that
+             decode, the two CSV files, no launch).
 
-Each of the phases from 5 on is a path: every launch count is set to 0 just
+The tree of phases 9-11 is written once under build/ and deleted at the
+end. Each of the phases from 5 on is a path: every launch count is set to 0 just
 before it and read just after. Before the last line it prints one JSON object with
 every kernel's numbers; the last line is {"ok": true, "device": {...}}.
 Without a GPU, or without the package beside it, it exits nonzero and prints
@@ -115,6 +138,12 @@ ACDC_TREE = {"slices": 10, "hw": (256, 216), "spacing": (1.5625, 1.5625, 10.0),
 # launches a step of the CLI's training step, and of a validation batch
 PER_STEP["train_cli"] = PER_STEP["slice"]
 PER_VAL_BATCH = {"warp_bilinear_nearest": 1}
+# the device-resident loop runs the CLI's step; a MaxStyle generation call
+# (the style demo's) launches a step's MaxStyle kernels and no warp
+PER_STEP["device_resident"] = PER_STEP["slice"]
+PER_GENERATION = {"maxstyle_stats": 21, "maxstyle_apply": 21, "maxstyle_bwd": 15}
+# the reference_import phase trains the train_cli config for one epoch
+REFERENCE_IMPORT_CHANGES = {"learning": {"n_epochs": 1}}
 # which path's run each kernel's "launches" is read from
 LAUNCH_PATH = {"maxstyle_stats": "slice", "maxstyle_apply": "slice", "maxstyle_bwd": "slice",
                "warp_bilinear_nearest": "slice", "warp_cubic_nearest": "slice_prostate_cubic",
@@ -973,153 +1002,440 @@ class _CliProbe:
         return probed
 
 
-def phase_train_cli(smi: str):
-    """The training CLI end to end on the card (see the module docstring,
-    phase 9), then the inference CLI on the OOD suite."""
+def _acdc_config(tmp: str, directory: str, changes):
+    """TRAIN_CLI_CONFIG with its root_dir on the synthetic tree under ``tmp``
+    and ``changes`` ({block: {key: value}}) applied, written into
+    ``directory``; returns (its path, the ExperimentConfig)."""
     import os
-    import shutil
-    import tempfile
+
+    from maxstyle_tpu_torch.config import ExperimentConfig
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    with open(os.path.join(root, TRAIN_CLI_CONFIG)) as f:
+        raw_cfg = json.load(f)
+    raw_cfg["data"]["root_dir"] = os.path.join(tmp, "train")
+    for block, block_changes in changes.items():
+        raw_cfg[block].update(block_changes)
+    os.makedirs(directory, exist_ok=True)
+    cfg_path = os.path.join(directory, os.path.basename(TRAIN_CLI_CONFIG))
+    with open(cfg_path, "w") as f:
+        json.dump(raw_cfg, f)
+    return cfg_path, ExperimentConfig.from_dict(raw_cfg)
+
+
+def phase_train_cli(smi: str, tmp: str, train_pids, val_pids):
+    """The training CLI end to end on the card (see the module docstring,
+    phase 9) on the synthetic ACDC tree under ``tmp``, then the inference
+    CLI on the OOD suite. Returns (launches, measure_throughput's steps/s
+    and the flagship step's host syncs a step on the same config)."""
+    import os
 
     import torch
     from maxstyle_tpu_torch import evaluate, infer, kernels, train
-    from maxstyle_tpu_torch.config import ExperimentConfig
     from maxstyle_tpu_torch.data import augment as A
     from maxstyle_tpu_torch.data.datasets import HostBatchLoader
     from maxstyle_tpu_torch.flagship import config_solver, measure_throughput
     from maxstyle_tpu_torch.utils import checkpoint as ckpt
 
     t_phase = time.perf_counter()
-    root = os.path.dirname(os.path.abspath(__file__))
-    os.makedirs(os.path.join(root, "build"), exist_ok=True)
-    tmp = tempfile.mkdtemp(prefix="train_cli_", dir=os.path.join(root, "build"))
+    cfg_path, cfg = _acdc_config(tmp, tmp, TRAIN_CLI_CHANGES)
+    n_epochs, batch = cfg.learning.n_epochs, cfg.learning.batch_size
+    frames, slices = len(cfg.data.frame), ACDC_TREE["slices"]
+    steps_per_epoch = len(train_pids) * frames * slices // cfg.train_batch_size
+    val_batches = -(-len(val_pids) * frames * slices // batch)
+
+    probe = _CliProbe(steps_per_epoch)
+    patches = [(train, "make_fused_train_step", probe.wrap_step_factory),
+               (ckpt, "save_checkpoint", probe.wrap_save),
+               (evaluate, "auto_test", probe.wrap_auto_test)]
+    saved = [(mod, name, getattr(mod, name)) for mod, name, _ in patches]
+    for mod, name, wrap in patches:
+        setattr(mod, name, wrap(getattr(mod, name)))
+    save_dir = os.path.join(tmp, "saved")
+    kernels.reset_launches()
+    t0 = time.perf_counter()
     try:
-        train_pids, val_pids = _write_acdc_tree(tmp)
-        with open(os.path.join(root, TRAIN_CLI_CONFIG)) as f:
-            raw_cfg = json.load(f)
-        raw_cfg["data"]["root_dir"] = os.path.join(tmp, "train")
-        for block, changes in TRAIN_CLI_CHANGES.items():
-            raw_cfg[block].update(changes)
-        cfg_path = os.path.join(tmp, os.path.basename(TRAIN_CLI_CONFIG))
-        with open(cfg_path, "w") as f:
-            json.dump(raw_cfg, f)
-        cfg = ExperimentConfig.from_dict(raw_cfg)
-        n_epochs, batch = cfg.learning.n_epochs, cfg.learning.batch_size
-        frames, slices = len(cfg.data.frame), ACDC_TREE["slices"]
-        steps_per_epoch = len(train_pids) * frames * slices // cfg.train_batch_size
-        val_batches = -(-len(val_pids) * frames * slices // batch)
-
-        probe = _CliProbe(steps_per_epoch)
-        patches = [(train, "make_fused_train_step", probe.wrap_step_factory),
-                   (ckpt, "save_checkpoint", probe.wrap_save),
-                   (evaluate, "auto_test", probe.wrap_auto_test)]
-        saved = [(mod, name, getattr(mod, name)) for mod, name, _ in patches]
-        for mod, name, wrap in patches:
-            setattr(mod, name, wrap(getattr(mod, name)))
-        save_dir = os.path.join(tmp, "saved")
-        kernels.reset_launches()
-        t0 = time.perf_counter()
-        try:
-            train.main(["--json_config_path", cfg_path, "--save_dir", save_dir,
-                        "--data_setting", "10", "--cval", "0", "--seed", "1", "--auto_test",
-                        "--test_root_dir", tmp])
-        finally:
-            for mod, name, orig in saved:
-                setattr(mod, name, orig)
-        torch.cuda.synchronize()
-        cli_s = time.perf_counter() - t0
-        launches = dict(kernels.LAUNCHES)
-
-        # the run directory
-        config_name = os.path.splitext(os.path.basename(cfg_path))[0]
-        run_dir = os.path.join(save_dir, f"train_ACDC_10_n_cls_{cfg.segmentation_model.num_classes}",
-                               config_name, "0")
-        log_dir, model_dir = os.path.join(run_dir, "log"), os.path.join(run_dir, "model")
-        need = [os.path.join(run_dir, "config.json"), os.path.join(model_dir, "best", "state.pt"),
-                os.path.join(model_dir, "best", "meta.json"),
-                os.path.join(model_dir, "epoch_0", "state.pt"),
-                os.path.join(log_dir, f"{config_name}_0.json"),
-                os.path.join(model_dir, "report", "dataset_summary.csv"),
-                os.path.join(model_dir, "report", "ACDC", "iter_1_detailed.csv")]
-        missing = [p for p in need if not os.path.exists(p)]
-        events = [f for f in os.listdir(log_dir) if f.startswith("events.out.tfevents.")]
-        if missing or not events:
-            fail(f"train_cli: missing from the run directory: {missing or 'the event file'}")
-        with open(os.path.join(log_dir, f"{config_name}_0.json")) as f:
-            history = json.load(f)
-        ious = [h["val_iou"] for h in history]
-        with open(os.path.join(model_dir, "report", "dataset_summary.csv")) as f:
-            summary = f.read().splitlines()
-        print(f"train_cli: {probe.steps} steps in {n_epochs} epochs, validation mIoU {ious}, "
-              f"train.main {cli_s:.1f} s; dataset_summary.csv: {len(summary) - 1} row(s) of "
-              f"{len(summary[0].split(','))} columns, first fields {summary[-1].split(',')[:3]}")
-        if len(ious) != n_epochs or not all(math.isfinite(v) for v in ious):
-            fail(f"train_cli: validation mIoU {ious} is not one finite value an epoch")
-        if len(summary) != 2 or not summary[1].startswith("ACDC,"):
-            fail(f"train_cli: dataset_summary.csv should hold one ACDC row, got {summary}")
-
-        # launches: a step's, plus a validation batch's, and none in the evaluation
-        steps = n_epochs * steps_per_epoch
-        print(f"train_cli: launches over {steps} steps and {n_epochs * val_batches} validation "
-              f"batches {json.dumps(launches)}; during the evaluation "
-              f"{json.dumps(probe.eval_launches)}")
-        if probe.steps != steps:
-            fail(f"train_cli ran {probe.steps} steps, expected {steps}")
-        for name in KERNELS:
-            want = (PER_STEP["train_cli"].get(name, 0) * steps
-                    + PER_VAL_BATCH.get(name, 0) * n_epochs * val_batches)
-            if launches[name] != want:
-                fail(f"train_cli: {name} launched {launches[name]} times, expected {want}")
-        if probe.eval_launches is None or any(probe.eval_launches.values()):
-            fail(f"train_cli: the evaluation launched port kernels: {probe.eval_launches}")
-
-        # best, reloaded into a fresh solver, against the state it was saved from
-        val_set = train.build_datasets(cfg, "10", 0)[1]
-        raw = train.to_device(next(iter(HostBatchLoader(val_set, batch, drop_last=False,
-                                                         shuffle=False))), torch.device("cuda"))
-        x, _ = A.norm_batch(raw["image"], raw["label"], cfg.crop_hw)
-        fresh = config_solver(cfg, "cuda")
-        kept = fresh.init_state(0)
-        for k, sd in probe.best_copy.items():
-            kept.modules[k].load_state_dict(sd, strict=True)
-        loaded, meta = ckpt.load_checkpoint(model_dir, "best", fresh.init_state(0))
-        a, b = fresh.predict(kept.modules, x), fresh.predict(loaded.modules, x)
-        same = torch.equal(a, b) and torch.equal(a.argmax(-1), b.argmax(-1))
-        print(f"train_cli: best (epoch {meta['epoch']}, mIoU {meta['best_score']:.4f}) reloaded: "
-              f"logits on a validation batch {tuple(a.shape)} bit-equal {same}")
-        if not same:
-            fail("train_cli: the reloaded best checkpoint predicts otherwise than the saved state")
-
-        # the inference CLI on the OOD suite
-        kernels.reset_launches()
-        out_dir = os.path.join(tmp, "predictions")
-        infer.main(["--json_config_path", cfg_path, "--ckpt_dir", model_dir, "--ckpt", "best",
-                    "--input_dir", os.path.join(tmp, "ACDC"), "--out_dir", out_dir,
-                    "--uncertainty"])
-        outs = sorted(os.listdir(out_dir))
-        want_outs = sorted(f"patient{i:03d}_{kind}.nrrd" for i in range(ACDC_TREE["ood_patients"])
-                           for kind in ("pred", "entropy"))
-        if outs != want_outs or any(kernels.LAUNCHES.values()):
-            fail(f"train_cli: inference wrote {outs} and launched {dict(kernels.LAUNCHES)}")
-        print(f"train_cli: inference wrote {len(outs)} files, no port kernel launched")
-
-        # the second epoch against the flagship path on the same config
-        cli_rate = steps_per_epoch / probe.epoch2_s
-        cli_syncs = len(probe.syncs) / steps_per_epoch
-        solver = config_solver(cfg, "cuda")
-        flag_rate, _, _ = measure_throughput(solver, k_inner=K_INNER, n_calls=2, n_repeats=2)
-        flag_syncs, flag_where = _flagship_syncs(solver)
-        where = {k: probe.syncs.count(k) for k in sorted(set(probe.syncs))}
-        print(f"train_cli: second epoch {cli_rate:.4f} steps/s, {cli_syncs:.2f} host syncs a step "
-              f"(at {where}); measure_throughput on the same config {flag_rate:.4f} steps/s "
-              f"(median of 2 rounds of 2 calls x {K_INNER} steps), flagship step "
-              f"{flag_syncs:.2f} host syncs a step (at {flag_where}); on {smi}; "
-              f"phase {time.perf_counter() - t_phase:.1f} s")
-        if cli_syncs > flag_syncs:
-            fail(f"train_cli: {cli_syncs} host syncs a step, more than the flagship step's "
-                 f"{flag_syncs}")
+        train.main(["--json_config_path", cfg_path, "--save_dir", save_dir,
+                    "--data_setting", "10", "--cval", "0", "--seed", "1", "--auto_test",
+                    "--test_root_dir", tmp])
     finally:
-        shutil.rmtree(tmp, ignore_errors=True)
+        for mod, name, orig in saved:
+            setattr(mod, name, orig)
+    torch.cuda.synchronize()
+    cli_s = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+
+    # the run directory
+    config_name = os.path.splitext(os.path.basename(cfg_path))[0]
+    run_dir = os.path.join(save_dir, f"train_ACDC_10_n_cls_{cfg.segmentation_model.num_classes}",
+                           config_name, "0")
+    log_dir, model_dir = os.path.join(run_dir, "log"), os.path.join(run_dir, "model")
+    need = [os.path.join(run_dir, "config.json"), os.path.join(model_dir, "best", "state.pt"),
+            os.path.join(model_dir, "best", "meta.json"),
+            os.path.join(model_dir, "epoch_0", "state.pt"),
+            os.path.join(log_dir, f"{config_name}_0.json"),
+            os.path.join(model_dir, "report", "dataset_summary.csv"),
+            os.path.join(model_dir, "report", "ACDC", "iter_1_detailed.csv")]
+    missing = [p for p in need if not os.path.exists(p)]
+    events = [f for f in os.listdir(log_dir) if f.startswith("events.out.tfevents.")]
+    if missing or not events:
+        fail(f"train_cli: missing from the run directory: {missing or 'the event file'}")
+    with open(os.path.join(log_dir, f"{config_name}_0.json")) as f:
+        history = json.load(f)
+    ious = [h["val_iou"] for h in history]
+    with open(os.path.join(model_dir, "report", "dataset_summary.csv")) as f:
+        summary = f.read().splitlines()
+    print(f"train_cli: {probe.steps} steps in {n_epochs} epochs, validation mIoU {ious}, "
+          f"train.main {cli_s:.1f} s; dataset_summary.csv: {len(summary) - 1} row(s) of "
+          f"{len(summary[0].split(','))} columns, first fields {summary[-1].split(',')[:3]}")
+    if len(ious) != n_epochs or not all(math.isfinite(v) for v in ious):
+        fail(f"train_cli: validation mIoU {ious} is not one finite value an epoch")
+    if len(summary) != 2 or not summary[1].startswith("ACDC,"):
+        fail(f"train_cli: dataset_summary.csv should hold one ACDC row, got {summary}")
+
+    # launches: a step's, plus a validation batch's, and none in the evaluation
+    steps = n_epochs * steps_per_epoch
+    print(f"train_cli: launches over {steps} steps and {n_epochs * val_batches} validation "
+          f"batches {json.dumps(launches)}; during the evaluation "
+          f"{json.dumps(probe.eval_launches)}")
+    if probe.steps != steps:
+        fail(f"train_cli ran {probe.steps} steps, expected {steps}")
+    for name in KERNELS:
+        want = (PER_STEP["train_cli"].get(name, 0) * steps
+                + PER_VAL_BATCH.get(name, 0) * n_epochs * val_batches)
+        if launches[name] != want:
+            fail(f"train_cli: {name} launched {launches[name]} times, expected {want}")
+    if probe.eval_launches is None or any(probe.eval_launches.values()):
+        fail(f"train_cli: the evaluation launched port kernels: {probe.eval_launches}")
+
+    # best, reloaded into a fresh solver, against the state it was saved from
+    val_set = train.build_datasets(cfg, "10", 0)[1]
+    raw = train.to_device(next(iter(HostBatchLoader(val_set, batch, drop_last=False,
+                                                     shuffle=False))), torch.device("cuda"))
+    x, _ = A.norm_batch(raw["image"], raw["label"], cfg.crop_hw)
+    fresh = config_solver(cfg, "cuda")
+    kept = fresh.init_state(0)
+    for k, sd in probe.best_copy.items():
+        kept.modules[k].load_state_dict(sd, strict=True)
+    loaded, meta = ckpt.load_checkpoint(model_dir, "best", fresh.init_state(0))
+    a, b = fresh.predict(kept.modules, x), fresh.predict(loaded.modules, x)
+    same = torch.equal(a, b) and torch.equal(a.argmax(-1), b.argmax(-1))
+    print(f"train_cli: best (epoch {meta['epoch']}, mIoU {meta['best_score']:.4f}) reloaded: "
+          f"logits on a validation batch {tuple(a.shape)} bit-equal {same}")
+    if not same:
+        fail("train_cli: the reloaded best checkpoint predicts otherwise than the saved state")
+
+    # the inference CLI on the OOD suite
+    kernels.reset_launches()
+    out_dir = os.path.join(tmp, "predictions")
+    infer.main(["--json_config_path", cfg_path, "--ckpt_dir", model_dir, "--ckpt", "best",
+                "--input_dir", os.path.join(tmp, "ACDC"), "--out_dir", out_dir,
+                "--uncertainty"])
+    outs = sorted(os.listdir(out_dir))
+    want_outs = sorted(f"patient{i:03d}_{kind}.nrrd" for i in range(ACDC_TREE["ood_patients"])
+                       for kind in ("pred", "entropy"))
+    if outs != want_outs or any(kernels.LAUNCHES.values()):
+        fail(f"train_cli: inference wrote {outs} and launched {dict(kernels.LAUNCHES)}")
+    print(f"train_cli: inference wrote {len(outs)} files, no port kernel launched")
+
+    # the second epoch against the flagship path on the same config
+    cli_rate = steps_per_epoch / probe.epoch2_s
+    cli_syncs = len(probe.syncs) / steps_per_epoch
+    solver = config_solver(cfg, "cuda")
+    flag_rate, _, _ = measure_throughput(solver, k_inner=K_INNER, n_calls=2, n_repeats=2)
+    flag_syncs, flag_where = _flagship_syncs(solver)
+    where = {k: probe.syncs.count(k) for k in sorted(set(probe.syncs))}
+    print(f"train_cli: second epoch {cli_rate:.4f} steps/s, {cli_syncs:.2f} host syncs a step "
+          f"(at {where}); measure_throughput on the same config {flag_rate:.4f} steps/s "
+          f"(median of 2 rounds of 2 calls x {K_INNER} steps), flagship step "
+          f"{flag_syncs:.2f} host syncs a step (at {flag_where}); on {smi}; "
+          f"phase {time.perf_counter() - t_phase:.1f} s")
+    if cli_syncs > flag_syncs:
+        fail(f"train_cli: {cli_syncs} host syncs a step, more than the flagship step's "
+             f"{flag_syncs}")
+    return launches, flag_rate, flag_syncs
+
+
+def phase_device_resident(smi: str, tmp: str, flag_rate: float, flag_syncs: float):
+    """The device-resident loop (phase 10): the synthetic tree's training
+    split uploaded to the card once, then one warm-up call, one call whose
+    host syncs are counted, and 3 timed calls without instrumentation, each
+    of K_INNER steps of ``make_device_train_loop`` on the train_cli config."""
+    import torch
+    from maxstyle_tpu_torch import kernels, train
+    from maxstyle_tpu_torch.data.device_data import DeviceDataset, make_device_train_loop
+    from maxstyle_tpu_torch.flagship import config_solver, workload_policy
+    from maxstyle_tpu_torch.profile_slice import host_syncs
+
+    t_phase = time.perf_counter()
+    _, cfg = _acdc_config(tmp, tmp, TRAIN_CLI_CHANGES)
+    solver = config_solver(cfg, "cuda")
+    train_set = train.build_datasets(cfg, "10", 0)[0]
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    data = DeviceDataset.from_slice_dataset(train_set, device="cuda")
+    torch.cuda.synchronize()
+    upload_s = time.perf_counter() - t0
+    run = make_device_train_loop(solver, workload_policy(cfg),
+                                 cfg.data.keep_orig_image_label_pair_for_training,
+                                 half_batch=cfg.train_batch_size, steps_per_call=K_INNER)
+    state = solver.init_state(0)
+    w0 = {k: p.detach().clone() for k, p in state.modules.named_parameters()}
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    kernels.reset_launches()
+    state, metrics = run(state, data.images, data.labels, gen)
+    results = []
+    syncs = host_syncs(lambda: results.append(run(state, data.images, data.labels, gen)))
+    state, metrics = results[-1]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(3):
+        state, metrics = run(state, data.images, data.labels, gen)
+    torch.cuda.synchronize()
+    rate = 3 * K_INNER / (time.perf_counter() - t0)
+    launches = dict(kernels.LAUNCHES)
+    steps = state.step
+    last = {k: float(v) for k, v in metrics.items()}
+    changed = sum(not torch.equal(w0[k], p) for k, p in state.modules.named_parameters())
+    per_step = sum(syncs.values()) / K_INNER
+    print(f"device_resident: {len(data)} slices {tuple(data.images.shape[1:])} resident, "
+          f"{data.nbytes} bytes, uploaded in {upload_s:.2f} s; metrics of the last call "
+          f"{json.dumps(last)}")
+    print(f"device_resident: launches over {steps} steps {json.dumps(launches)}; "
+          f"{changed} of {len(w0)} parameter tensors changed")
+    print(f"device_resident: {rate:.4f} steps/s (3 calls x {K_INNER} steps after a warm-up "
+          f"call and the call counting syncs) against measure_throughput's {flag_rate:.4f} on the same config; "
+          f"{per_step:.2f} host syncs a step (at {dict(syncs)}) against the flagship step's "
+          f"{flag_syncs:.2f}; peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
+          f"on {smi}; phase {time.perf_counter() - t_phase:.1f} s")
+    if steps != 5 * K_INNER:
+        fail(f"device_resident ran {steps} steps, expected {5 * K_INNER}")
+    if not all(math.isfinite(v) for v in last.values()) or last["loss/hard/total"] == 0.0:
+        fail(f"device_resident: non-finite or missing losses {last}")
+    if changed != len(w0):
+        fail(f"device_resident: only {changed} of {len(w0)} parameter tensors changed")
+    for name in KERNELS:
+        want = PER_STEP["device_resident"].get(name, 0) * steps
+        if launches[name] != want:
+            fail(f"device_resident: {name} launched {launches[name]} times over {steps} "
+                 f"steps, expected {want}")
+    if per_step > flag_syncs:
+        fail(f"device_resident: {per_step} host syncs a step, more than the flagship step's "
+             f"{flag_syncs}")
     return launches
+
+
+def _reference_state_dicts(seed: int, num_classes: int, r: int = 4, latent: int = 128):
+    """Seeded state dicts in the reference's naming (Dual_Branch_Encoder,
+    MyDecoder with NN up for the segmentation and Conv2 up for the image),
+    with num_batches_tracked buffers, built as
+    tests/test_torch_import_encoder.py builds them: conv weights and biases
+    0.1 N(0,1), BatchNorm scales |0.1 N(0,1)| + 0.5, running variances
+    likewise, biases and means 0.1 N(0,1)."""
+    import numpy as np
+    import torch
+
+    rng = np.random.RandomState(seed)
+
+    def rnd(*shape):
+        return torch.from_numpy(rng.randn(*shape).astype(np.float32) * 0.1)
+
+    def bn(sd, name, c):
+        sd[f"{name}.weight"] = rnd(c).abs() + 0.5
+        sd[f"{name}.bias"] = rnd(c)
+        sd[f"{name}.running_mean"] = rnd(c)
+        sd[f"{name}.running_var"] = rnd(c).abs() + 0.5
+        sd[f"{name}.num_batches_tracked"] = torch.tensor(1000)
+
+    def conv(sd, name, cin, cout, k, bias=True):
+        sd[f"{name}.weight"] = rnd(cout, cin, k, k)
+        if bias:
+            sd[f"{name}.bias"] = rnd(cout)
+
+    enc = {}
+    chans = [64 // r, 128 // r, 256 // r, 512 // r, 512 // r]
+    conv(enc, "general_encoder.inc.0", 1, chans[0], 3)
+    bn(enc, "general_encoder.inc.1", chans[0])
+    conv(enc, "general_encoder.inc.3", chans[0], chans[0], 3)
+    bn(enc, "general_encoder.inc.4", chans[0])
+    cin = chans[0]
+    for i, cout in enumerate(chans[1:], start=1):
+        q = f"general_encoder.down{i}"
+        conv(enc, f"{q}.down", cin, cin, 3)
+        conv(enc, f"{q}.conv.0", cin, cout, 3)
+        bn(enc, f"{q}.conv.1", cout)
+        conv(enc, f"{q}.conv.3", cout, cout, 3)
+        bn(enc, f"{q}.conv.4", cout)
+        conv(enc, f"{q}.conv_input", cin, cout, 1)
+        cin = cout
+    conv(enc, "general_encoder.final_conv.0", cin, latent, 1)
+    bn(enc, "general_encoder.final_conv.1", latent)
+    for i in (0, 3):
+        conv(enc, f"code_decoupler.{i}", latent, latent, 3, bias=False)
+        bn(enc, f"code_decoupler.{i + 1}", latent)
+
+    def decoder(up_type, out_ch):
+        sd = {}
+        dchans = [latent, 256 // r, 128 // r, 64 // r, 64 // r]
+        for i in range(1, 5):
+            cin, cout = dchans[i - 1], dchans[i]
+            if up_type == "Conv2":
+                sd[f"up{i}.up.weight"] = rnd(cin, cin, 2, 2)
+                sd[f"up{i}.up.bias"] = rnd(cin)
+            conv(sd, f"up{i}.conv.0", cin, cout, 3)
+            bn(sd, f"up{i}.conv.1", cout)
+            conv(sd, f"up{i}.conv.3", cout, cout, 3)
+            bn(sd, f"up{i}.conv.4", cout)
+            conv(sd, f"up{i}.conv_input", cin, cout, 1)
+        conv(sd, "final_conv", dchans[4], out_ch, 1)
+        return sd
+
+    return {"image_encoder": enc, "segmentation_decoder": decoder("NN", num_classes),
+            "image_decoder": decoder("Conv2", 1)}
+
+
+def _tensor_multiset(tensors):
+    """Sorted (shape, bytes) of each tensor: equal multisets mean every
+    tensor arrived with its bits, wherever it went."""
+    return sorted((tuple(t.shape), t.detach().cpu().contiguous().numpy().tobytes())
+                  for t in tensors)
+
+
+def phase_reference_import(smi: str, tmp: str):
+    """Reference-format .pth files through the training CLI, the inference
+    CLI and the style demo, then an artefacted OOD suite generated and
+    evaluated with top-k panels (phase 11)."""
+    import os
+
+    import torch
+    from maxstyle_tpu_torch import demo_generate_styles, evaluate, infer, kernels, train
+    from maxstyle_tpu_torch.data import artefacts
+    from maxstyle_tpu_torch.flagship import config_solver
+    from maxstyle_tpu_torch.metrics import table_columns
+    from maxstyle_tpu_torch.utils.torch_import import (import_module_checkpoint,
+                                                       import_module_checkpoints)
+    from maxstyle_tpu_torch.utils.visualize import read_png
+
+    t_phase = time.perf_counter()
+    work = os.path.join(tmp, "reference_import")
+    ref = os.path.join(work, "pth")
+    os.makedirs(ref)
+    cfg_path, cfg = _acdc_config(tmp, work, REFERENCE_IMPORT_CHANGES)
+    files = _reference_state_dicts(seed=31, num_classes=cfg.segmentation_model.num_classes)
+    for name, sd in files.items():
+        torch.save(sd, os.path.join(ref, f"{name}.pth"))
+    total = {k: 0 for k in KERNELS}
+
+    def launched(what, want_per, times):
+        got = dict(kernels.LAUNCHES)
+        for k in KERNELS:
+            total[k] += got[k]
+        print(f"reference_import: {what}: launches {json.dumps(got)}")
+        for k in KERNELS:
+            want = sum(per.get(k, 0) * n for per, n in zip(want_per, times))
+            if got[k] != want:
+                fail(f"reference_import: {what}: {k} launched {got[k]} times, expected {want}")
+
+    # 1. the training CLI, from the files' weights
+    first = {}
+    factory = train.make_fused_train_step
+
+    def probed_factory(*a, **kw):
+        step = factory(*a, **kw)
+
+        def probed(state, *sa, **skw):
+            if not first:
+                first.update({k: {n: t.detach().clone() for n, t in m.state_dict().items()}
+                              for k, m in state.modules.items()})
+            return step(state, *sa, **skw)
+        return probed
+
+    train.make_fused_train_step = probed_factory
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    try:
+        train.main(["--json_config_path", cfg_path, "--save_dir", os.path.join(work, "saved"),
+                    "--data_setting", "10", "--cval", "0", "--seed", "1",
+                    "--torch_ckpt_dir", ref])
+    finally:
+        train.make_fused_train_step = factory
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    train_set, val_set = train.build_datasets(cfg, "10", 0)
+    n_train = len(train_set) // cfg.train_batch_size
+    n_val = -(-len(val_set) // cfg.learning.batch_size)
+    launched(f"train.main --torch_ckpt_dir, 1 epoch ({train_s:.1f} s)",
+             [PER_STEP["slice"], PER_VAL_BATCH], [n_train, n_val])
+    bad = []
+    for name, sd in files.items():
+        want = import_module_checkpoint(os.path.join(ref, f"{name}.pth"), name)
+        got = first[name]
+        if set(got) != set(want) or not all(torch.equal(got[k].cpu(), want[k]) for k in want):
+            bad.append(f"{name} (mapped)")
+        plain = [t for k, t in sd.items() if not k.endswith("num_batches_tracked")]
+        if _tensor_multiset(plain) != _tensor_multiset(got.values()):
+            bad.append(f"{name} (tensor bits)")
+    flips = [i for i in range(1, 5)
+             if not torch.equal(first["image_decoder"][f"up{i}.up.conv.weight"].cpu(),
+                                files["image_decoder"][f"up{i}.up.weight"])]
+    print(f"reference_import: weights before step 1 equal the files' tensors bit for bit: "
+          f"{not bad} {bad}; transposed convs unflipped: {not flips}")
+    if bad or flips:
+        fail(f"reference_import: imported weights differ from the files: {bad}, up{flips}")
+
+    # 2. the inference CLI
+    kernels.reset_launches()
+    out_dir = os.path.join(work, "predictions")
+    infer.main(["--json_config_path", cfg_path, "--torch_ckpt_dir", ref,
+                "--input_dir", os.path.join(tmp, "ACDC"), "--out_dir", out_dir])
+    outs = sorted(os.listdir(out_dir))
+    launched("infer.main --torch_ckpt_dir", [], [])
+    if len(outs) != ACDC_TREE["ood_patients"]:
+        fail(f"reference_import: inference wrote {outs}")
+
+    # 3. the style demo: two generation calls through the adversarial loop
+    kernels.reset_launches()
+    png = os.path.join(work, "maxstyle_samples.png")
+    demo_generate_styles.main(["--torch_ckpt_dir", ref, "--image", "none", "--crop", "192",
+                               "--n_samples", "8", "--n_iter", "5", "--out", png])
+    torch.cuda.synchronize()
+    launched("demo_generate_styles --n_iter 5, 2 generation calls", [PER_GENERATION], [2])
+    pix, text = read_png(png)
+    print(f"reference_import: demo grid {pix.shape} decoded, titles {sorted(set(text.values()))}")
+    if pix.shape != (4 * 192, 4 * 192, 3) or not pix.any():
+        fail(f"reference_import: the demo's PNG is {pix.shape}")
+
+    # 4. an artefacted OOD suite, generated on the host, then evaluated with panels
+    solver = config_solver(cfg, "cuda")
+    kernels.reset_launches()
+    suites = os.path.join(work, "ood")
+    t0 = time.perf_counter()
+    artefacts.main(["--root_dir", os.path.join(tmp, "ACDC"), "--out_root", suites,
+                    "--artefact", "all", "--crop", *map(str, cfg.crop_hw), "--repeats", "1"])
+    art_s = time.perf_counter() - t0
+    state = solver.init_state(0)
+    import_module_checkpoints(state.modules, ref, solver.spec)
+    report = os.path.join(work, "report")
+    t0 = time.perf_counter()
+    means, _, rows = evaluate.evaluate(solver, state, "RandomMotion", suites,
+                                       crop_hw=cfg.crop_hw, new_spacing=cfg.data.new_spacing,
+                                       save_report_dir=report, save_top_k=2)
+    eval_s = time.perf_counter() - t0
+    launched("artefacts.main + evaluate(save_top_k=2)", [], [])
+    panels = sorted(d for d in os.listdir(report) if os.path.isdir(os.path.join(report, d)))
+    shapes = [read_png(os.path.join(report, d, "Seg_plots.png"))[0].shape for d in panels]
+    csvs = sorted(f for f in os.listdir(report) if f.endswith(".csv"))
+    dice = {c: round(m, 4) for c, m in zip(table_columns(rows)[1:], means) if c.endswith("Dice")}
+    print(f"reference_import: artefacts.main wrote {sorted(os.listdir(suites))} in "
+          f"{art_s:.1f} s; evaluate on RandomMotion ({len(rows)} volumes, {eval_s:.1f} s): "
+          f"mean Dice {dice}, panels {panels} of {shapes}, {csvs}")
+    if len(panels) != 4 or [p.split("_")[0] for p in panels] != ["top1", "top2", "worst1",
+                                                                  "worst2"]:
+        fail(f"reference_import: expected 4 top-k panels, got {panels}")
+    if csvs != ["iter_1_detailed.csv", "iter_1_summary.csv"]:
+        fail(f"reference_import: report CSV files {csvs}")
+    print(f"reference_import: on {smi}; phase {time.perf_counter() - t_phase:.1f} s")
+    return total
 
 
 def main():
@@ -1151,7 +1467,20 @@ def main():
                                   f"{solver.config.learning.batch_size} @{hw}^2",
                                   rounds=1, channel=channel)
         del solver
-    paths["train_cli"] = phase_train_cli(smi)
+    import os
+    import shutil
+    import tempfile
+    build = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
+    os.makedirs(build, exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="acdc_tree_", dir=build)
+    try:
+        train_pids, val_pids = _write_acdc_tree(tmp)
+        paths["train_cli"], flag_rate, flag_syncs = phase_train_cli(smi, tmp, train_pids,
+                                                                    val_pids)
+        paths["device_resident"] = phase_device_resident(smi, tmp, flag_rate, flag_syncs)
+        paths["reference_import"] = phase_reference_import(smi, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
 
     out = []
     for kname, row in rows.items():

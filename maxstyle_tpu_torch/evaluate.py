@@ -14,9 +14,9 @@ test_prostate_segmentation.py:25-98):
   package, so every chunk has one shape.
 * test-set registry: ACDC + artefacted variants + MSCMRSeg C0/LGE + M&M +
   UKBB (cardiac) and the 7 prostate sites A-ISBI..G-MedicalDecathlon.
-
-The top-k panels (``save_top_k``) need ``utils/visualize.py``, which is not
-ported yet (ROADMAP Queue 1 item 4), and raise.
+* top-k panels (``save_top_k``): the k best and k worst patients by a
+  metric column, ranked as pandas' ``sort_values`` ranks them, rendered by
+  ``utils/visualize.py`` into ``{report}/{top|worst}{rank}_{pid}/Seg_plots.png``.
 """
 
 from __future__ import annotations
@@ -30,6 +30,7 @@ import torch
 from maxstyle_tpu_torch.data import medio
 from maxstyle_tpu_torch.data.datasets import SliceDataset, build_general_dataset
 from maxstyle_tpu_torch.metrics import SegmentationScore, table_columns, write_csv
+from maxstyle_tpu_torch.utils.visualize import save_segmentation_panels
 
 CARDIAC_TEST_SUITES = ["ACDC", "RandomBias", "RandomSpike", "RandomMotion",
                        "RandomGhosting", "MSCMRSeg_C0", "MSCMRSeg_LGE", "MM",
@@ -61,7 +62,7 @@ class TestSegmentationNetwork:
                  save_predict: bool = False,
                  foreground_only: bool = False,
                  test_set_ratio: float = 1.0,
-                 crop_hw: Tuple[int, int] = (192, 192)):
+                 crop_hw: Tuple[int, int] = (192, 192), keep_volumes: bool = False):
         self.solver = solver
         self.state = state
         self.dataset = dataset
@@ -76,6 +77,10 @@ class TestSegmentationNetwork:
         self.save_predict = save_predict
         self.foreground_only = foreground_only
         self.test_set_ratio = test_set_ratio
+        # (pid, volume or None, pred, gt); the float32 volume is kept only
+        # when top-k panels were asked for
+        self.keep_volumes = keep_volumes
+        self.per_patient: List[Tuple[str, Optional[np.ndarray], np.ndarray, np.ndarray]] = []
 
     def predict_volume(self, volume: np.ndarray) -> np.ndarray:
         """[S,h,w] normalized volume -> [S,h,w] int predictions, in chunks of
@@ -109,6 +114,7 @@ class TestSegmentationNetwork:
             # spacing is (sx,sy,sz); metrics expect [S,H,W]-ordered sampling
             vx = (spacing[2], spacing[1], spacing[0])
             self.score.update(pid, pred, gt, voxel_spacing=vx)
+            self.per_patient.append((pid, vol if self.keep_volumes else None, pred, gt))
             if self.save_predict and self.save_report_dir:
                 os.makedirs(self.save_report_dir, exist_ok=True)
                 medio.write_nrrd(os.path.join(self.save_report_dir, f"{pid}_pred.nrrd"),
@@ -120,6 +126,51 @@ class TestSegmentationNetwork:
             write_csv(os.path.join(self.save_report_dir, "iter_1_summary.csv"),
                       [dict(zip(cols, means)), dict(zip(cols, stds))], index=["mean", "std"])
         return means, stds
+
+    def top_k(self, k: int, metric_col: int = 0, worst: bool = False) -> List[str]:
+        """Patient ids ranked by a metric column (test_basic…:227-244): the
+        best first, or with ``worst`` the worst first."""
+        col = self.score.columns()[metric_col]
+        values = [r.get(col, np.nan) for r in self.score.records]
+        order = sort_order(values, ascending=worst)
+        return [self.score.records[i]["patient_id"] for i in order[:k]]
+
+    def save_top_k_result(self, k: int = 3, metric_col: int = 0,
+                          out_dir: Optional[str] = None) -> List[Optional[str]]:
+        """(image, GT, prediction) panel grids of the k best and k worst
+        patients by a metric column
+        (test_basic_segmentation_solver.save_top_k_result:247-300)."""
+        out_dir = out_dir or self.save_report_dir
+        if out_dir is None:
+            raise ValueError("save_top_k_result needs a report directory")
+        if not self.keep_volumes:
+            raise ValueError("save_top_k_result needs keep_volumes=True (evaluate() sets it "
+                             "when save_top_k > 0)")
+        by_pid = {pid: (vol, pred, gt) for pid, vol, pred, gt in self.per_patient}
+        paths = []
+        for worst, tag in ((False, "top"), (True, "worst")):
+            for rank, pid in enumerate(self.top_k(k, metric_col, worst=worst), 1):
+                vol, pred, gt = by_pid[pid]
+                paths.append(save_segmentation_panels(vol, gt, pred, out_dir,
+                                                      tag=f"{tag}{rank}_{pid}"))
+        return paths
+
+
+def sort_order(values: Sequence[float], ascending: bool = True) -> np.ndarray:
+    """The row order of pandas' ``sort_values(ascending=...)`` on one float
+    column (``pandas.core.sorting.nargsort``, kind 'quicksort', NaN last):
+    numpy's argsort of the values that are not NaN, reversed before and
+    after for a descending sort, then the NaN rows in their order."""
+    v = np.asarray(values, np.float64)
+    mask = np.isnan(v)
+    idx = np.arange(len(v))
+    vals, keep = v[~mask], idx[~mask]
+    if not ascending:
+        vals, keep = vals[::-1], keep[::-1]
+    order = keep[vals.argsort(kind="quicksort")]
+    if not ascending:
+        order = order[::-1]
+    return np.concatenate([order, idx[mask]])
 
 
 def get_testset(test_dataset_name: str, test_root_dir: str,
@@ -147,10 +198,8 @@ def evaluate(solver, state, test_dataset_name: str, test_root_dir: str, *,
              save_top_k: int = 0):
     """One test suite -> (means, stds, per-patient rows); the cardiac /
     prostate evaluate() wrappers in one function (class set chosen by the
-    solver's num_classes)."""
-    if save_top_k > 0:
-        raise NotImplementedError("save_top_k is not ported yet: its panels need "
-                                  "utils/visualize.py, ROADMAP Queue 1 item 4")
+    solver's num_classes). With ``save_top_k`` > 0 and a report directory,
+    the panels of the ``save_top_k`` best and worst patients go there too."""
     if foreground_only is None:
         foreground_only = solver.num_classes <= 2
     class_names = (PROSTATE_CLASS_NAMES if foreground_only
@@ -161,8 +210,11 @@ def evaluate(solver, state, test_dataset_name: str, test_root_dir: str, *,
         solver, state, dataset, maximum_batch_size=maximum_batch_size,
         metrics_list=metrics_list, class_names=class_names,
         save_report_dir=save_report_dir, foreground_only=foreground_only,
-        test_set_ratio=test_set_ratio, crop_hw=crop_hw, n_iter=n_iter)
+        test_set_ratio=test_set_ratio, crop_hw=crop_hw, n_iter=n_iter,
+        keep_volumes=save_top_k > 0)
     means, stds = harness.run()
+    if save_top_k > 0 and save_report_dir:
+        harness.save_top_k_result(k=save_top_k)
     return means, stds, harness.score.records
 
 

@@ -12,8 +12,9 @@ Usage:
       --out_dir predictions [--uncertainty] [--keep_largest_cc] [--device cpu]
 
 It runs on the GPU unless ``--device`` names another device.
-``--torch_ckpt_dir`` and ``--data_parallel`` are not ported yet (ROADMAP
-Queue 1 items 4 and 8) and raise.
+``--torch_ckpt_dir`` takes the reference's per-module ``.pth`` files instead
+of a checkpoint (a module without a file keeps its seed-0 weights).
+``--data_parallel`` is not ported yet (ROADMAP Queue 1 item 8) and raises.
 """
 
 from __future__ import annotations
@@ -34,6 +35,7 @@ def main(argv=None):
     from maxstyle_tpu_torch.train import not_ported
     from maxstyle_tpu_torch.utils import checkpoint as ckpt
     from maxstyle_tpu_torch.utils.postprocess import keep_largest_connected_components
+    from maxstyle_tpu_torch.utils.torch_import import import_module_checkpoints
     from maxstyle_tpu_torch.utils.uncertainty import entropy_map
 
     parser = argparse.ArgumentParser()
@@ -42,7 +44,7 @@ def main(argv=None):
     parser.add_argument("--ckpt_dir", type=str, default=None)
     parser.add_argument("--ckpt", type=str, default="best")
     parser.add_argument("--torch_ckpt_dir", type=str, default=None,
-                        help="reference per-module .pth files (not ported yet)")
+                        help="directory of reference per-module .pth files")
     parser.add_argument("--input_dir", type=str, required=True)
     parser.add_argument("--image_format", type=str, default="{pid}/img.nii.gz")
     parser.add_argument("--label_format", type=str, default=None,
@@ -57,8 +59,6 @@ def main(argv=None):
     parser.add_argument("--device", type=str, default=None,
                         help="torch device; the GPU by default ('cpu' to run on the CPU)")
     opt = parser.parse_args(argv)
-    if opt.torch_ckpt_dir:
-        raise not_ported("--torch_ckpt_dir", 4, "the reference .pth import")
     if opt.data_parallel:
         raise not_ported("--data_parallel", 8, "parallelism")
 
@@ -71,6 +71,8 @@ def main(argv=None):
     state = solver.init_state(0)
     if opt.ckpt_dir:
         state, _ = ckpt.load_checkpoint(opt.ckpt_dir, opt.ckpt, state)
+    elif opt.torch_ckpt_dir:
+        import_module_checkpoints(state.modules, opt.torch_ckpt_dir, solver.spec)
 
     label_format = opt.label_format or opt.image_format  # labels optional
     ds = SliceDataset(opt.input_dir, sorted(os.listdir(opt.input_dir)),

@@ -15,13 +15,13 @@ boundary. The MaxStyle op is the fused one of ``ops/maxstyle_kernels.py``
 autograd op of ``ops/maxstyle.py`` is its reference in the tests. The
 method branches' procedures are here too: the MixStyle/DSU encoder replay,
 latent-space hard example generation (LSM) and the full forward ``run``.
-SGD/StepLR and STN are not ported yet.
+STN is not ported yet.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 from torch import nn
@@ -34,6 +34,7 @@ from maxstyle_tpu_torch.ops import latent_masking as lm
 from maxstyle_tpu_torch.ops import maxstyle as ms
 from maxstyle_tpu_torch.ops.intensity import intensity_norm_fn
 from maxstyle_tpu_torch.ops.maxstyle_kernels import apply_maxstyle_kernels
+from maxstyle_tpu_torch.utils.ema import ScheduleLR, make_lr_schedule
 
 
 def resolve_device(device=None) -> torch.device:
@@ -50,11 +51,13 @@ def resolve_device(device=None) -> torch.device:
 @dataclasses.dataclass
 class TrainState:
     """The modules (weights and BatchNorm buffers), one optimizer per
-    module, and the step count. The train step updates it in place."""
+    module, the learning-rate schedule of each module that has one, and the
+    step count. The train step updates it in place."""
 
     modules: nn.ModuleDict
     optimizers: Dict[str, torch.optim.Optimizer]
     step: int = 0
+    schedulers: Dict[str, ScheduleLR] = dataclasses.field(default_factory=dict)
 
 
 @dataclasses.dataclass
@@ -67,15 +70,26 @@ class ForwardAux:
     y0: torch.Tensor
 
 
-def make_optimizer(optimizer_type: str, params, lr: float) -> torch.optim.Optimizer:
-    """Per-module optimizer with torch-default hyperparameters. AdamW's decay
-    reaches every parameter, biases and BatchNorm scales included, as
-    optax.adamw's does."""
+def make_optimizer(optimizer_type: str, params, lr: float,
+                   steps_per_epoch: Optional[int] = None, n_epochs: int = 600
+                   ) -> Tuple[torch.optim.Optimizer, Optional[ScheduleLR]]:
+    """Per-module optimizer with torch-default hyperparameters, and its
+    learning-rate schedule or None. AdamW's decay reaches every parameter,
+    biases and BatchNorm scales included, as optax.adamw's does. SGD takes
+    momentum 0.99 and, when ``steps_per_epoch`` is known, the reference's
+    StepLR(5, 0.5) (set_schedulers :1070-1077) on the update count."""
     if optimizer_type == "Adam":
-        return torch.optim.Adam(params, lr=lr, betas=(0.9, 0.999), eps=1e-8)
+        return torch.optim.Adam(params, lr=lr, betas=(0.9, 0.999), eps=1e-8), None
     if optimizer_type == "AdamW":
         return torch.optim.AdamW(params, lr=lr, betas=(0.9, 0.999), eps=1e-8,
-                                 weight_decay=0.01)
+                                 weight_decay=0.01), None
+    if optimizer_type == "SGD":
+        opt = torch.optim.SGD(params, lr=lr, momentum=0.99)
+        if not steps_per_epoch:
+            return opt, None
+        return opt, ScheduleLR(opt, make_lr_schedule("step", lr, lr_decay_epochs=5,
+                                                     steps_per_epoch=steps_per_epoch,
+                                                     total_epochs=n_epochs))
     raise NotImplementedError(f"optimizer {optimizer_type!r} is not ported yet")
 
 
@@ -122,17 +136,23 @@ class TripletSegmentationSolver:
                                  decoder_dropout=L.decoder_dropout)
         return nets.to(self.device)
 
-    def init_state(self, seed: int = 0, state_dicts: Optional[Dict] = None) -> TrainState:
+    def init_state(self, seed: int = 0, state_dicts: Optional[Dict] = None,
+                   steps_per_epoch: Optional[int] = None) -> TrainState:
         """A TrainState with modules from ``seed``, or loaded from
-        ``state_dicts`` ({module name: state dict}, e.g. from convert.py)."""
+        ``state_dicts`` ({module name: state dict}, e.g. from convert.py).
+        ``steps_per_epoch`` gives SGD its StepLR schedule."""
         nets = self.build_modules(seed)
         if state_dicts is not None:
             for name, sd in state_dicts.items():
                 nets[name].load_state_dict(sd, strict=True)
         L = self.config.learning
-        optimizers = {name: make_optimizer(L.optimizer_type, nets[name].parameters(), L.lr)
-                      for name in nets}
-        return TrainState(modules=nets, optimizers=optimizers)
+        optimizers, schedulers = {}, {}
+        for name in nets:
+            optimizers[name], sched = make_optimizer(L.optimizer_type, nets[name].parameters(),
+                                                     L.lr, steps_per_epoch, L.n_epochs)
+            if sched is not None:
+                schedulers[name] = sched
+        return TrainState(modules=nets, optimizers=optimizers, schedulers=schedulers)
 
     # ------------------------------------------------------------------
     # module application

@@ -17,9 +17,12 @@ weights from (seed, "init"), one generator for every step from
 so that they do not depend on how many steps ran.
 
 ``python3 -m maxstyle_tpu_torch.train --json_config_path <config> ...`` runs
-on the GPU; ``--device cpu`` runs on the CPU. ``--torch_ckpt_dir`` and
-``--data_parallel`` are not ported yet (ROADMAP Queue 1 items 4 and 8) and
-raise.
+on the GPU; ``--device cpu`` runs on the CPU. ``--torch_ckpt_dir`` imports
+the reference's per-module ``.pth`` files before training
+(``utils/torch_import.py``; a module without a file keeps its fresh
+weights). SGD configs get their StepLR schedule from the epoch's step
+count. ``--data_parallel`` is not ported yet (ROADMAP Queue 1 item 8) and
+raises.
 """
 
 from __future__ import annotations
@@ -46,6 +49,7 @@ from maxstyle_tpu_torch.solver import TripletSegmentationSolver
 from maxstyle_tpu_torch.train_step import make_fused_train_step, make_multi_step
 from maxstyle_tpu_torch.utils import checkpoint as ckpt
 from maxstyle_tpu_torch.utils.tb_events import EventFileWriter
+from maxstyle_tpu_torch.utils.torch_import import import_module_checkpoints
 
 
 def not_ported(flag: str, item: int, what: str) -> NotImplementedError:
@@ -162,13 +166,20 @@ class ScalarLogger:
             self.writer = None
 
 
+def steps_per_epoch(train_set, cfg: ExperimentConfig) -> int:
+    """Optimizer steps an epoch: the training loader's batches, which SGD's
+    StepLR boundaries count in."""
+    return len(HostBatchLoader(train_set, cfg.train_batch_size))
+
+
 def train_network(experiment_name: str, solver: TripletSegmentationSolver, train_set,
                   validate_set, cfg: ExperimentConfig, *, model_dir: str,
                   log_dir: Optional[str] = None, seed: Optional[int] = None, log: bool = False,
-                  debug: bool = False, start_epoch: int = 0, state=None,
+                  debug: bool = False, start_epoch: int = 0, state,
                   max_epochs: Optional[int] = None, inner_steps: int = 1):
-    """The epoch loop (train_adv…train_network:92-584). Returns (final
-    state, best validation mIoU)."""
+    """The epoch loop (train_adv…train_network:92-584) from ``state``, an
+    ``init_state`` built with ``steps_per_epoch(train_set, cfg)``. Returns
+    (final state, best validation mIoU)."""
     L = cfg.learning
     d = cfg.data
     dev = solver.device
@@ -177,8 +188,7 @@ def train_network(experiment_name: str, solver: TripletSegmentationSolver, train
     keep_orig = d.keep_orig_image_label_pair_for_training
     policy = A.get_policy(d.data_aug_policy, pad_hw, crop_hw, image_interp=d.image_interp)
 
-    if state is None:
-        state = solver.init_state(prng.stream_seed(seed, "init"))
+    loader = HostBatchLoader(train_set, cfg.train_batch_size, seed=seed)
     if inner_steps > 1:
         multi = make_multi_step(solver, policy, keep_orig, n_inner=inner_steps)
 
@@ -188,7 +198,6 @@ def train_network(experiment_name: str, solver: TripletSegmentationSolver, train
     else:
         step = make_fused_train_step(solver, policy, keep_orig)
     step_gen = prng.stream(seed, "step", device=dev)
-    loader = HostBatchLoader(train_set, cfg.train_batch_size, seed=seed)
     val_loader = HostBatchLoader(validate_set, L.batch_size, seed=seed, drop_last=False,
                                  shuffle=False)
     logger = ScalarLogger(log_dir, log)
@@ -258,7 +267,7 @@ def main(argv=None):
                         help="model_dir holding an 'interrupted' checkpoint to resume")
     parser.add_argument("--test_model_dir_path", type=str, default=None)
     parser.add_argument("--torch_ckpt_dir", type=str, default=None,
-                        help="reference per-module .pth files to import (not ported yet)")
+                        help="directory of reference per-module .pth files to import")
     parser.add_argument("--save_dir", type=str, default="./saved/")
     parser.add_argument("--log", action="store_true", default=True)
     parser.add_argument("--seed", type=int, default=None)
@@ -276,8 +285,6 @@ def main(argv=None):
     parser.add_argument("--device", type=str, default=None,
                         help="torch device; the GPU by default ('cpu' to run on the CPU)")
     opt = parser.parse_args(argv)
-    if opt.torch_ckpt_dir:
-        raise not_ported("--torch_ckpt_dir", 4, "the reference .pth import")
     if opt.data_parallel:
         raise not_ported("--data_parallel", 8, "parallelism")
 
@@ -295,16 +302,24 @@ def main(argv=None):
     os.makedirs(model_dir, exist_ok=True)
     shutil.copyfile(opt.json_config_path, os.path.join(run_dir, "config.json"))
 
+    n_steps = None
+    if not opt.no_train:
+        train_set, validate_set = build_datasets(cfg, opt.data_setting, opt.cval)
+        n_steps = steps_per_epoch(train_set, cfg)
+    # one initial state for a fresh start, an import and a resume
     state = None
+    if not opt.no_train or opt.torch_ckpt_dir or opt.resume_ckpt_path:
+        state = solver.init_state(prng.stream_seed(opt.seed, "init"), steps_per_epoch=n_steps)
     start_epoch = 0
+    if opt.torch_ckpt_dir:
+        for name in import_module_checkpoints(state.modules, opt.torch_ckpt_dir, solver.spec):
+            print(f"imported torch weights for {name}")
     if opt.resume_ckpt_path:
-        state, meta = ckpt.load_checkpoint(opt.resume_ckpt_path, "interrupted",
-                                           solver.init_state(0))
+        state, meta = ckpt.load_checkpoint(opt.resume_ckpt_path, "interrupted", state)
         start_epoch = meta.get("epoch", 0)
         print(f"resumed from {opt.resume_ckpt_path} at epoch {start_epoch}")
 
     if not opt.no_train:
-        train_set, validate_set = build_datasets(cfg, opt.data_setting, opt.cval)
         state, _ = train_network(experiment_name, solver, train_set, validate_set, cfg,
                                  model_dir=model_dir, log_dir=log_dir, seed=opt.seed,
                                  log=opt.log, debug=opt.debug, start_epoch=start_epoch,

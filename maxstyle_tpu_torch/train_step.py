@@ -141,6 +141,8 @@ def make_train_step(solver: TripletSegmentationSolver):
                 if p.grad is None:
                     p.grad = torch.zeros_like(p)
             opt.step()
+            if name in state.schedulers:
+                state.schedulers[name].step()
         m["loss/total"] = total
         state.step += 1
         return state, {k: v.detach() for k, v in m.items()}

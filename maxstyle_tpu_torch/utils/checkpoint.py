@@ -46,7 +46,8 @@ def save_checkpoint(directory: str, name: str, state: TrainState, epoch: int = 0
 def load_checkpoint(directory: str, name: str, template: TrainState) -> Tuple[TrainState, dict]:
     """Restore (state, meta) from {directory}/{name} into ``template`` (an
     ``init_state`` result of the same network, whose device it keeps): every
-    module strictly, every optimizer and the step. Returns the template.
+    module strictly, every optimizer and the step, with each learning-rate
+    schedule moved to that step. Returns the template.
 
     The file is read to the CPU: ``load_state_dict`` copies weights and
     moments to their parameters' devices, and leaves the optimizers' step
@@ -63,6 +64,8 @@ def load_checkpoint(directory: str, name: str, template: TrainState) -> Tuple[Tr
     for k, sd in saved["optimizers"].items():
         template.optimizers[k].load_state_dict(sd)
     template.step = int(saved["step"])
+    for sched in template.schedulers.values():
+        sched.seek(template.step)
     meta_path = os.path.join(path, "meta.json")
     meta = {}
     if os.path.exists(meta_path):

@@ -132,8 +132,10 @@ def test_auto_test_writes_the_jax_package_dataset_summary(pair, tmp_path):
         assert jb == tb
     with pytest.raises(FileNotFoundError):
         teval.auto_test(ts, tstate, "ACDC", str(tmp_path / "none"), save_dir=str(tmp_path))
-    with pytest.raises(NotImplementedError, match="visualize"):
-        teval.evaluate(ts, tstate, "ACDC", root, save_top_k=1, **kw)
+    report = tmp_path / "topk"
+    teval.evaluate(ts, tstate, "ACDC", root, save_top_k=1, save_report_dir=str(report), **kw)
+    panels = sorted(p.relative_to(report).as_posix() for p in report.rglob("*.png"))
+    assert len(panels) == 2 and panels[0].startswith("top1_") and panels[1].startswith("worst1_")
 
 
 def test_eval_model_with_no_aug_gives_the_jax_package_miou(pair):

@@ -1,11 +1,13 @@
 """Boundaries of the port: it never imports JAX or the JAX package, and its
 entry points never fall back to the CPU on their own."""
 
+import os
 import re
 import subprocess
 import sys
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 
@@ -109,8 +111,9 @@ def test_branch_modules_are_walked_and_branch_workloads_need_a_gpu_or_cpu_asked(
 
 
 # libraries the JAX package's host layer imports and the GPU machine lacks
-ABSENT_ON_THE_GPU_MACHINE = ("sklearn", "pandas", "orbax")
-ABSENT_IMPORT = re.compile(r"^\s*(import|from)\s+(sklearn|pandas|orbax)\b", re.MULTILINE)
+ABSENT_ON_THE_GPU_MACHINE = ("sklearn", "pandas", "orbax", "matplotlib")
+ABSENT_IMPORT = re.compile(r"^\s*(import|from)\s+(sklearn|pandas|orbax|matplotlib)\b",
+                           re.MULTILINE)
 
 
 def test_no_package_file_imports_sklearn_pandas_or_orbax():
@@ -159,3 +162,33 @@ def test_train_and_infer_clis_raise_without_a_gpu_unless_cpu_is_asked(tmp_path):
                 "--no_train", "--device", "cpu"])
     assert (tmp_path / "saved" / "train_ACDC_10_n_cls_4" / "MICCAI2022_MaxStyle" / "0"
             / "config.json").exists()
+
+
+def test_slice_nine_modules_are_walked_and_their_entry_points_need_a_gpu_or_cpu_asked(tmp_path):
+    import pkgutil
+
+    import maxstyle_tpu_torch
+    from maxstyle_tpu_torch import demo_generate_styles
+    from maxstyle_tpu_torch.data.device_data import DeviceDataset
+    names = {m.name for m in pkgutil.walk_packages(maxstyle_tpu_torch.__path__,
+                                                   "maxstyle_tpu_torch.")}
+    assert {"maxstyle_tpu_torch.utils.torch_import", "maxstyle_tpu_torch.utils.ema",
+            "maxstyle_tpu_torch.utils.visualize", "maxstyle_tpu_torch.demo_generate_styles",
+            "maxstyle_tpu_torch.utils.profiling", "maxstyle_tpu_torch.utils.features",
+            "maxstyle_tpu_torch.data.device_data", "maxstyle_tpu_torch.data.preprocess",
+            "maxstyle_tpu_torch.data.clahe", "maxstyle_tpu_torch.data.artefacts",
+            "maxstyle_tpu_torch.utils.pairwise_measures",
+            "maxstyle_tpu_torch.ops.morphology"} <= names
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present: the entry points run on it")
+    out = str(tmp_path / "samples.png")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        demo_generate_styles.main(["--image", "none", "--torch_ckpt_dir", "none", "--crop",
+                                   "32", "--n_samples", "1", "--out", out])
+    ds = type("D", (), {"__len__": lambda self: 1,
+                        "get_raw_slice": lambda self, i: (np.zeros((4, 4), np.float32),
+                                                          np.zeros((4, 4), np.int32), "p")})()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        DeviceDataset.from_slice_dataset(ds)
+    assert not os.path.exists(out)
+    assert DeviceDataset.from_slice_dataset(ds, device="cpu").images.device.type == "cpu"
