@@ -89,10 +89,34 @@ Phases, each printing its own lines; any failure exits nonzero:
              launches in each of its 2 generation calls, the PNG decodes);
              artefacts.main (numpy, on the host) on the OOD suite and
              evaluate(save_top_k=2) on its RandomMotion copy (4 panels that
-             decode, the two CSV files, no launch).
+             decode, the two CSV files, no launch);
+12. slice_stn — configs/ACDC/1500_epoch/MICCAI2022_MaxStyle.json with
+             network_type FCN_16_standard (the STN, seg_only shape input) at
+             full width (effective batch 20, 224 -> 192, MaxStyle n_iter=5),
+             one warm-up call and 2 calls of K=4: finite losses, non-zero gt
+             and pred shape losses and hard-example shape loss, exactly
+             21/21/15/1 launches a step; then one validation batch of the
+             training CLI's eval_model with predict(n_iter=2), which must run
+             the shape modules once and launch 1 warp and nothing else;
+13. slice_ds_fcn — the same config with DS_FCN_16_standard: as slice_stn's
+             training, and both domains' BatchNorm running statistics moved
+             (domain 0 by the standard pass, domain 1 by the hard-example
+             pass);
+14. slice_unet — the same config with Unet_16_Unet_im_recon_no_STN: the
+             image decoder is a UnetDecoder over the skip pyramid, so
+             MaxStyle's hooks 3, 4, 5 run in full decodes; exactly
+             21/21/15/1 launches a step. In each of phases 12-14 the image
+             decoder's hooks 3, 4, 5 see the headline's shapes (20x16@96^2,
+             20x16@192^2, 20x1@192^2), at which phase 3 held the kernels;
+15. basic_solver — the baseline SegmentationModel with UNet_16, FCN_16 and
+             ResUNet_16 (Adam 1e-4, EMA) at batch 20, 192^2, 4 classes, on
+             synthetic slices made on the card: one warm-up step and 8 timed
+             steps each; finite losses, every parameter tensor changed, no
+             port kernel launched (the zoo runs none); steps/s.
 
-The tree of phases 9-11 is written once under build/ and deleted at the
-end. Each of the phases from 5 on is a path: every launch count is set to 0 just
+Phases 12-14 print steps/s and peak memory beside the card's name and
+power limit. The tree of phases 9-11 is written once under build/ and
+deleted at the end. Each of the phases from 5 on is a path: every launch count is set to 0 just
 before it and read just after. Before the last line it prints one JSON object with
 every kernel's numbers; the last line is {"ok": true, "device": {...}}.
 Without a GPU, or without the package beside it, it exits nonzero and prints
@@ -144,6 +168,15 @@ PER_STEP["device_resident"] = PER_STEP["slice"]
 PER_GENERATION = {"maxstyle_stats": 21, "maxstyle_apply": 21, "maxstyle_bwd": 15}
 # the reference_import phase trains the train_cli config for one epoch
 REFERENCE_IMPORT_CHANGES = {"learning": {"n_epochs": 1}}
+# the network families' paths: flagship workloads, the headline config with
+# another network_type
+FAMILY_PATHS = {"slice_stn": "headline_stn", "slice_ds_fcn": "headline_ds_fcn",
+                "slice_unet": "headline_unet"}
+PER_STEP.update({path: PER_STEP["slice"] for path in FAMILY_PATHS})
+# the baseline zoo's path launches no port kernel
+PER_STEP["basic_solver"] = {}
+BASIC_ZOO = ("UNet_16", "FCN_16", "ResUNet_16")
+BASIC_STEPS = 8
 # which path's run each kernel's "launches" is read from
 LAUNCH_PATH = {"maxstyle_stats": "slice", "maxstyle_apply": "slice", "maxstyle_bwd": "slice",
                "warp_bilinear_nearest": "slice", "warp_cubic_nearest": "slice_prostate_cubic",
@@ -806,11 +839,12 @@ def phase_reference():
 
 
 def phase_train(path: str, solver, smi: str, desc: str, rounds: int = 3,
-                channel: str = None):
+                channel: str = None, check=None):
     """Drive one training path: K_INNER-step calls of make_multi_step (one
     warm-up, then ``rounds`` rounds of 2), with the launch counts set to 0
     just before and read just after. Checks finite losses, a non-zero
-    ``channel`` when given, and the launches per step of PER_STEP[path]."""
+    ``channel`` when given, and the launches per step of PER_STEP[path];
+    then calls ``check(state, metrics of the last call)`` when given."""
     import torch
     from maxstyle_tpu_torch import kernels
     from maxstyle_tpu_torch.flagship import measure_throughput
@@ -840,6 +874,166 @@ def phase_train(path: str, solver, smi: str, desc: str, rounds: int = 3,
         if launches[name] != want:
             fail(f"{path}: {name} launched {launches[name]} times over {steps} steps, "
                  f"expected {want}")
+    if check is not None:
+        check(state, last)
+    return launches
+
+
+def _stn_validation(solver, state):
+    """One validation batch of the training CLI's eval_model with
+    predict(n_iter=2) on the trained state: the shape decoder must run once
+    and the batch launch 1 bilinear warp and no other kernel."""
+    import torch
+    from maxstyle_tpu_torch import kernels
+    from maxstyle_tpu_torch.flagship import make_raw_batches, workload_policy
+    from maxstyle_tpu_torch.train import eval_model
+
+    cfg = solver.config
+    policy = workload_policy(cfg)
+    raw = make_raw_batches(1, cfg.learning.batch_size, policy.pad_hw[0], 7, solver.device,
+                           num_classes=cfg.segmentation_model.num_classes)
+    calls = []
+    hook = state.modules["shape_decoder"].register_forward_hook(
+        lambda *a: calls.append(1))
+    kernels.reset_launches()
+    try:
+        # the validation loader's batches are host arrays
+        miou, _ = eval_model(solver, state, [{k: v[0].cpu().numpy() for k, v in raw.items()}],
+                             policy,
+                             cfg.crop_hw, torch.Generator(device="cuda").manual_seed(8),
+                             n_iter=2)
+    finally:
+        hook.remove()
+    torch.cuda.synchronize()
+    launches = dict(kernels.LAUNCHES)
+    print(f"slice_stn: validation batch predict(n_iter=2): shape decoder calls {len(calls)}, "
+          f"mIoU {miou:.4f}, launches {json.dumps(launches)}")
+    if len(calls) != 1:
+        fail(f"slice_stn: predict(n_iter=2) ran the shape decoder {len(calls)} times, not once")
+    if not math.isfinite(miou):
+        fail("slice_stn: non-finite validation mIoU")
+    if any(n != PER_VAL_BATCH.get(k, 0) for k, n in launches.items()):
+        fail(f"slice_stn: the validation batch launched {launches}, expected {PER_VAL_BATCH}")
+
+
+def _check_stn(solver, state, last):
+    for key in ("loss/standard/gt_shape", "loss/standard/shape", "loss/hard/shape"):
+        if not last[key] > 0:
+            fail(f"slice_stn: {key} is {last[key]}, expected > 0")
+    _stn_validation(solver, state)
+
+
+def _check_ds(solver, state, last):
+    """Both domains' running statistics moved from the initial state's
+    (measure_throughput starts from seed 0)."""
+    import torch
+
+    if not last["loss/standard/gt_shape"] > 0:
+        fail("slice_ds_fcn: the STN's gt shape loss is 0")
+    init = solver.init_state(0).modules["image_encoder"].state_dict()
+    sd = state.modules["image_encoder"].state_dict()
+    moved = {d: sum(not torch.equal(sd[k], init[k]) for k in sd
+                    if f".bn_domain{d}.running" in k) for d in (0, 1)}
+    total = {d: sum(f".bn_domain{d}.running" in k for k in sd) for d in (0, 1)}
+    print(f"slice_ds_fcn: running statistics moved, domain 0 {moved[0]}/{total[0]}, "
+          f"domain 1 {moved[1]}/{total[1]}")
+    if moved[0] != total[0] or moved[1] != total[1]:
+        fail("slice_ds_fcn: a domain's BatchNorm statistics did not move")
+
+
+def _check_unet(solver, state, last):
+    from maxstyle_tpu_torch.models.unet import UnetDecoder
+
+    if not isinstance(state.modules["image_decoder"], UnetDecoder):
+        fail("slice_unet: the image decoder is not a UnetDecoder")
+    if not last["loss/hard/total"] > 0:
+        fail("slice_unet: the hard-example loss is 0")
+
+
+def _check_family(path, solver, state, last):
+    """The MaxStyle hooks of the path's image decoder see the headline's
+    shapes, at which the kernels phase checked and timed kernels 1-3; then
+    the path's own checks."""
+    import torch
+    from maxstyle_tpu_torch.bench_style import STYLE_SHAPES
+
+    cfg = solver.config
+    n, (h, w) = cfg.learning.batch_size, cfg.crop_hw
+    indexes = tuple(cfg.max_style.decoder_layers_indexes)
+    seen = {}
+    with torch.no_grad():
+        z_i, _ = solver.encode_image(state.modules, torch.zeros((n, 1, h, w), device="cuda"),
+                                     mode="eval")
+        solver.decode(state.modules, "image_decoder", z_i, mode="eval",
+                      style_fns={i: (lambda v, i=i: seen.setdefault(i, tuple(v.shape)) and v)
+                                 for i in indexes})
+    shapes = tuple(seen[i] for i in indexes)
+    print(f"{path}: MaxStyle hook shapes {shapes}")
+    if shapes != STYLE_SHAPES["headline"]:
+        fail(f"{path}: hook shapes {shapes}, not the headline's {STYLE_SHAPES['headline']}")
+    {"slice_stn": _check_stn, "slice_ds_fcn": _check_ds,
+     "slice_unet": _check_unet}[path](solver, state, last)
+
+
+def phase_families(smi: str):
+    """Phases 12-14: the STN, DS_FCN and Unet paths at full width."""
+    from maxstyle_tpu_torch.flagship import WORKLOADS
+
+    import functools
+
+    paths = {}
+    for path, workload in FAMILY_PATHS.items():
+        solver = WORKLOADS[workload](device="cuda")
+        paths[path] = phase_train(path, solver, smi,
+                                  f"{solver.spec.network_type}, effective batch "
+                                  f"{solver.config.learning.batch_size} "
+                                  f"@{solver.config.crop_hw[0]}^2",
+                                  rounds=1, check=functools.partial(_check_family, path, solver))
+        del solver
+    return paths
+
+
+def phase_basic_solver(smi: str):
+    """Phase 15: the baseline SegmentationModel zoo at batch 20, 192^2."""
+    import torch
+    from maxstyle_tpu_torch import kernels
+    from maxstyle_tpu_torch.basic_solver import SegmentationModel
+
+    g = torch.Generator(device="cuda").manual_seed(11)
+    batch = {"image": torch.rand((20, 192, 192, 1), generator=g, device="cuda"),
+             "label": torch.randint(0, 4, (20, 192, 192), generator=g, device="cuda")}
+    kernels.reset_launches()
+    for network_type in BASIC_ZOO:
+        torch.cuda.reset_peak_memory_stats()
+        model = SegmentationModel(network_type, num_classes=4, lr=1e-4, use_ema=True,
+                                  device="cuda")
+        state = model.init_state(seed=0)
+        before = {k: v.detach().clone() for k, v in state.network.named_parameters()}
+        step = model.make_train_step()
+        state, metrics = step(state, batch)
+        losses = [metrics["loss"]]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(BASIC_STEPS):
+            state, metrics = step(state, batch)
+            losses.append(metrics["loss"])
+        torch.cuda.synchronize()
+        rate = BASIC_STEPS / (time.perf_counter() - t0)
+        losses = [float(v) for v in losses]
+        unchanged = [k for k, v in state.network.named_parameters()
+                     if torch.equal(v.detach(), before[k])]
+        n, hw = batch["image"].shape[:2]
+        print(f"basic_solver {network_type}: {rate:.4f} steps/s ({BASIC_STEPS} steps after a "
+              f"warm-up, batch {n} @{hw}^2, float32) on {smi}; losses {losses[0]:.4f} -> "
+              f"{losses[-1]:.4f}; peak memory "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        if not all(math.isfinite(v) for v in losses):
+            fail(f"basic_solver {network_type}: non-finite loss")
+        if unchanged:
+            fail(f"basic_solver {network_type}: parameters {unchanged[:3]} did not change")
+    launches = dict(kernels.LAUNCHES)
+    if any(launches.values()):
+        fail(f"basic_solver: the zoo launched port kernels {launches}")
     return launches
 
 
@@ -1481,6 +1675,8 @@ def main():
         paths["reference_import"] = phase_reference_import(smi, tmp)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+    paths.update(phase_families(smi))
+    paths["basic_solver"] = phase_basic_solver(smi)
 
     out = []
     for kname, row in rows.items():

@@ -13,8 +13,14 @@ after the flax ones, so the mapping goes by path:
                                              torch's flips)
   BatchNorm             scale/bias + mean/var -> weight/bias +
                                              running_mean/running_var
-  ``BatchNorm_0`` (the flax Norm2d child) is dropped from the path and
-  ``ConvTranspose_0`` becomes the port's ``conv``.
+  spectral-norm conv    kernel/bias + u/v     -> weight/bias + buffers u/v
+  self-attention gate   gamma                 -> gamma
+  ``BatchNorm_0`` (the flax Norm2d child) is dropped from the path.
+  ``ConvTranspose_0`` becomes ``conv`` inside an ``Upsampler`` (flax path
+  ``.../up/ConvTranspose_0``: the FCN decoder's Conv2 and Conv4 blocks) and
+  ``up`` elsewhere (the UNet's ``Up`` and ``ResConvUp``, where it sits
+  beside a ``conv`` or ``ResConv_0`` child). Domain-specific norms
+  (``bn_domain{d}``) and the UNet's ``code_filters_{i}`` keep their names.
 """
 
 from __future__ import annotations
@@ -24,8 +30,8 @@ from typing import Dict, Iterator, Mapping, Tuple
 import numpy as np
 import torch
 
-_RENAME = {"BatchNorm_0": None, "ConvTranspose_0": "conv"}
-_LEAF = {"bias": "bias", "scale": "weight", "mean": "running_mean", "var": "running_var"}
+_LEAF = {"bias": "bias", "scale": "weight", "gamma": "gamma", "mean": "running_mean",
+         "var": "running_var", "u": "u", "v": "v"}
 
 
 def _walk(tree: Mapping, path: Tuple[str, ...] = ()) -> Iterator[Tuple[Tuple[str, ...], np.ndarray]]:
@@ -37,9 +43,13 @@ def _walk(tree: Mapping, path: Tuple[str, ...] = ()) -> Iterator[Tuple[Tuple[str
 
 
 def _torch_name(path: Tuple[str, ...]) -> str:
-    segs = [_RENAME.get(s, s) for s in path[:-1]]
-    leaf = path[-1]
-    return ".".join([s for s in segs if s is not None] + [_LEAF.get(leaf, "weight")])
+    segs = []
+    for i, s in enumerate(path[:-1]):
+        if s == "ConvTranspose_0":
+            s = "conv" if i > 0 and path[i - 1] == "up" else "up"
+        if s != "BatchNorm_0":
+            segs.append(s)
+    return ".".join(segs + [_LEAF.get(path[-1], "weight")])
 
 
 def flax_to_state_dict(params: Mapping, batch_stats: Mapping | None = None
@@ -54,11 +64,11 @@ def flax_to_state_dict(params: Mapping, batch_stats: Mapping | None = None
                 a = a[::-1, ::-1].transpose(2, 3, 0, 1)
             else:
                 a = a.transpose(3, 2, 0, 1)
-        elif path[-1] not in ("bias", "scale"):
+        elif path[-1] not in ("bias", "scale", "gamma"):
             raise ValueError(f"unexpected flax parameter {'/'.join(path)}")
         out[_torch_name(path)] = torch.from_numpy(np.ascontiguousarray(a))
     for path, a in _walk(batch_stats or {}):
-        if path[-1] not in ("mean", "var"):
+        if path[-1] not in ("mean", "var", "u", "v"):
             raise ValueError(f"unexpected flax batch stat {'/'.join(path)}")
         out[_torch_name(path)] = torch.from_numpy(np.ascontiguousarray(a))
     return out

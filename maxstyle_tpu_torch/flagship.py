@@ -21,7 +21,11 @@ Counterpart of ``__graft_entry__._flagship_solver`` and
   (configs/Prostate/, 288^2 -> 224^2, 2 classes), ``acdc_lsm``
   (configs/ACDC/1500_epoch/MICCAI2021_LSM.json, 224^2 -> 192^2, 4 classes)
   — and ``prostate_standard`` (configs/Prostate/standard_training.json), the
-  base they are compared with.
+  base they are compared with; and one a network family on the headline's
+  file (configs/ACDC/1500_epoch/MICCAI2022_MaxStyle.json, its widths and
+  MaxStyle loop) with another network_type: ``headline_stn``
+  (FCN_16_standard), ``headline_ds_fcn`` (DS_FCN_16_standard),
+  ``headline_unet`` (Unet_16_Unet_im_recon_no_STN).
 * :func:`measure_throughput` times ``make_multi_step`` on synthetic raw
   slices, with the policy, sizes and class count of the solver's config;
   ``python3 -m maxstyle_tpu_torch.flagship --workload <name>`` prints its
@@ -51,6 +55,7 @@ from maxstyle_tpu_torch.train_step import make_multi_step
 
 CONFIGS = Path(__file__).resolve().parent.parent / "configs"
 PROSTATE_MAXSTYLE = CONFIGS / "Prostate" / "MICCAI2022_MaxStyle.json"
+ACDC_MAXSTYLE = CONFIGS / "ACDC" / "1500_epoch" / "MICCAI2022_MaxStyle.json"
 
 
 def set_float32_policy(device: torch.device) -> None:
@@ -161,6 +166,18 @@ def config_file_solver(path, device=None) -> TripletSegmentationSolver:
     return config_solver(load_config(path), device)
 
 
+def family_solver(network_type: str, device=None) -> TripletSegmentationSolver:
+    """The headline's config file with ``network_type`` in place of its
+    FCN_16_standard_no_STN."""
+    cfg = load_config(ACDC_MAXSTYLE)
+    cfg = dataclasses.replace(cfg, segmentation_model=dataclasses.replace(
+        cfg.segmentation_model, network_type=network_type))
+    return config_solver(cfg, device)
+
+
+# the network families on the headline's config
+FAMILIES = {"headline_stn": "FCN_16_standard", "headline_ds_fcn": "DS_FCN_16_standard",
+            "headline_unet": "Unet_16_Unet_im_recon_no_STN"}
 # the method-branch configs and the standard training they are compared with
 BRANCH_CONFIGS = {
     "prostate_standard": CONFIGS / "Prostate" / "standard_training.json",
@@ -175,7 +192,9 @@ BRANCH_CONFIGS = {
 }
 WORKLOADS = {"headline": flagship_solver, "prostate_cubic": prostate_cubic_solver,
              **{name: functools.partial(config_file_solver, path)
-                for name, path in BRANCH_CONFIGS.items()}}
+                for name, path in BRANCH_CONFIGS.items()},
+             **{name: functools.partial(family_solver, network_type)
+                for name, network_type in FAMILIES.items()}}
 
 
 def main(argv=None) -> None:

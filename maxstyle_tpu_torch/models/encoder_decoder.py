@@ -34,32 +34,34 @@ def _maybe_style(x: torch.Tensor, style_fns: StyleFns, idx: int) -> torch.Tensor
 
 class Encoder(nn.Module):
     """Channel plan 64,128,256,512,512 (÷ feature_reduce), then 1x1 to
-    ``out_ch`` + norm + activation."""
+    ``out_ch`` + norm + activation. With ``num_domains`` > 1 (DS_FCN) every
+    norm, the final one included, is a :class:`layers.DomainSpecificNorm2d`
+    picked by ``domain_id``."""
 
     def __init__(self, in_ch: int, out_ch: int, feature_reduce: int = 1,
                  norm: str = "batch", dropout: Optional[float] = None,
-                 act: Optional[str] = "relu"):
+                 act: Optional[str] = "relu", num_domains: int = 1):
         super().__init__()
         r = feature_reduce
         chans = [64 // r, 128 // r, 256 // r, 512 // r, 512 // r]
-        self.inc = layers.InConv(in_ch, chans[0], norm)
-        self.down1 = layers.ResConvDown(chans[0], chans[1], norm, dropout)
-        self.down2 = layers.ResConvDown(chans[1], chans[2], norm, dropout)
-        self.down3 = layers.ResConvDown(chans[2], chans[3], norm, dropout)
-        self.down4 = layers.ResConvDown(chans[3], chans[4], norm, dropout)
+        self.inc = layers.InConv(in_ch, chans[0], norm, num_domains)
+        for i in range(1, 5):
+            self.add_module(f"down{i}", layers.ResConvDown(chans[i - 1], chans[i], norm,
+                                                           dropout, num_domains))
         self.final_conv = layers.conv1x1(chans[4], out_ch)
-        self.final_norm = layers.Norm2d(norm, out_ch)
+        self.final_norm = layers.make_norm(norm, out_ch, num_domains)
         if act not in ("relu", "sigmoid", None):
             raise NotImplementedError(act)
         self.act = act
 
-    def forward(self, x: torch.Tensor, mode: str, style_fns: StyleFns = None) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, mode: str, style_fns: StyleFns = None,
+                domain_id: int = 0) -> torch.Tensor:
         """``style_fns`` hooks: 1 = after the stem and its lrelu, 2..5 =
         after down1..4, 6 = after the final activation."""
-        x = _maybe_style(layers.lrelu(self.inc(x, mode)), style_fns, 1)
+        x = _maybe_style(layers.lrelu(self.inc(x, mode, domain_id)), style_fns, 1)
         for i, down in enumerate((self.down1, self.down2, self.down3, self.down4)):
-            x = _maybe_style(down(x, mode), style_fns, i + 2)
-        z = self.final_norm(self.final_conv(x), mode)
+            x = _maybe_style(down(x, mode, domain_id), style_fns, i + 2)
+        z = layers.apply_norm(self.final_norm, self.final_conv(x), mode, domain_id)
         if self.act == "relu":
             z = torch.relu(z)
         elif self.act == "sigmoid":
@@ -88,20 +90,21 @@ class DualBranchEncoder(nn.Module):
 
     def __init__(self, in_ch: int, z_level_1_ch: int, z_level_2_ch: int,
                  feature_reduce: int = 1, norm: str = "batch",
-                 dropout: Optional[float] = None):
+                 dropout: Optional[float] = None, num_domains: int = 1):
         super().__init__()
         self.general_encoder = Encoder(in_ch, z_level_1_ch, feature_reduce, norm,
-                                       dropout, act="relu")
+                                       dropout, act="relu", num_domains=num_domains)
         self.code_decoupler = CodeDecoupler(z_level_1_ch, z_level_2_ch, norm)
 
-    def encode(self, x: torch.Tensor, mode: str, style_fns: StyleFns = None) -> torch.Tensor:
-        return self.general_encoder(x, mode, style_fns)
+    def encode(self, x: torch.Tensor, mode: str, style_fns: StyleFns = None,
+               domain_id: int = 0) -> torch.Tensor:
+        return self.general_encoder(x, mode, style_fns, domain_id)
 
     def filter_code(self, z: torch.Tensor, mode: str) -> torch.Tensor:
         return self.code_decoupler(z, mode)
 
-    def forward(self, x: torch.Tensor, mode: str):
-        z = self.encode(x, mode)
+    def forward(self, x: torch.Tensor, mode: str, domain_id: int = 0):
+        z = self.encode(x, mode, domain_id=domain_id)
         return z, self.filter_code(z, mode)
 
 

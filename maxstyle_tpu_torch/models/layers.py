@@ -1,7 +1,8 @@
-"""Building blocks of the FCN model family as torch modules (NCHW).
+"""Building blocks of the model families as torch modules (NCHW).
 
-Counterpart of the main-path part of ``maxstyle_tpu/models/layers.py``, with
-the JAX package's initialisation (which is the reference's effective one):
+Counterpart of ``maxstyle_tpu/models/layers.py`` (all but the SE, AdaIN,
+SPP and BatchInstanceNorm blocks), with the JAX package's initialisation
+(which is the reference's effective one):
 
 * conv weights Kaiming-normal, fan in, gain sqrt(2); biases zero (torch's
   own default bias init differs);
@@ -139,38 +140,158 @@ def live_running_stats(nets: nn.Module):
             m.track_live, m._live = False, None
 
 
-def Norm2d(kind: str, features: int) -> BatchNorm:
-    """Norm selector; the ported path uses only ``"batch"``."""
-    if kind != "batch":
-        raise NotImplementedError(f"Norm2d({kind!r}) is not ported yet")
-    return BatchNorm(features)
+class InstanceNorm(nn.Module):
+    """Per-(sample, channel) normalization with the biased variance and eps
+    1e-5 inside the sqrt, the same in every mode; with ``affine`` a learned
+    scale (ones) and bias (zeros) follow."""
+
+    def __init__(self, features: int, affine: bool = False):
+        super().__init__()
+        self.affine = affine
+        if affine:
+            self.weight = nn.Parameter(torch.ones(features))
+            self.bias = nn.Parameter(torch.zeros(features))
+
+    def forward(self, x: torch.Tensor, mode: str) -> torch.Tensor:
+        var, mean = torch.var_mean(x, dim=(2, 3), keepdim=True, unbiased=False)
+        out = (x - mean) / torch.sqrt(var + 1e-5)
+        if self.affine:
+            out = out * self.weight[:, None, None] + self.bias[:, None, None]
+        return out
+
+
+class Identity(nn.Module):
+    """The "none" norm."""
+
+    def forward(self, x: torch.Tensor, mode: str) -> torch.Tensor:
+        return x
+
+
+NORM_SWAP_ITEM = "ROADMAP Queue 1 item 7.2 (norm_swap and BatchInstanceNorm)"
+
+
+def Norm2d(kind: str, features: int) -> nn.Module:
+    """Norm selector: "batch" (affine BatchNorm), "instance" (no affine),
+    "instance_affine" or "none"."""
+    if kind == "batch":
+        return BatchNorm(features)
+    if kind in ("instance", "instance_affine"):
+        return InstanceNorm(features, affine=kind == "instance_affine")
+    if kind == "none":
+        return Identity()
+    if kind in ("batch_instance", "batch_instance_noaffine"):
+        raise NotImplementedError(f"Norm2d({kind!r}) is not ported yet: it is {NORM_SWAP_ITEM}")
+    raise ValueError(kind)
+
+
+class DomainSpecificNorm2d(nn.Module):
+    """One BatchNorm a domain (children ``bn_domain{d}``); ``domain_id``, a
+    Python int, picks the one that normalizes and, in "train" mode, updates
+    its running statistics. The others are left as they are."""
+
+    def __init__(self, num_domains: int, features: int):
+        super().__init__()
+        for d in range(num_domains):
+            self.add_module(f"bn_domain{d}", BatchNorm(features))
+
+    def forward(self, x: torch.Tensor, mode: str, domain_id: int = 0) -> torch.Tensor:
+        return getattr(self, f"bn_domain{domain_id}")(x, mode)
+
+
+def make_norm(kind: str, features: int, num_domains: int) -> nn.Module:
+    return DomainSpecificNorm2d(num_domains, features) if num_domains > 1 else Norm2d(kind, features)
+
+
+def apply_norm(norm: nn.Module, x: torch.Tensor, mode: str, domain_id: int) -> torch.Tensor:
+    if isinstance(norm, DomainSpecificNorm2d):
+        return norm(x, mode, domain_id)
+    return norm(x, mode)
+
+
+def _l2_normalize(v: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:
+    """torch F.normalize(dim=0): v / max(||v||, eps)."""
+    return v / torch.clamp(torch.linalg.vector_norm(v), min=eps)
+
+
+class TorchSNConv3x3(nn.Module):
+    """3x3 conv under torch-semantics spectral normalization with one power
+    iteration, the conv1 of the domain-specific encoder's down blocks.
+
+    ``u`` [O] and ``v`` [I*9] are buffers. "train" and "frozen" passes first
+    run one power iteration on the weight matrix W (O, I*9), without
+    gradient: v = normalize(W^T u), u = normalize(W v); "train" writes the
+    new u and v back, "frozen" drops them; "eval" uses the stored ones.
+    Then sigma = u . (W v) with u and v constants and W live, so the
+    backward carries the quotient-rule term of W / sigma.
+    ``torch.nn.utils.spectral_norm`` is not used: its hook writes u and v
+    back in every training forward."""
+
+    def __init__(self, in_ch: int, out_ch: int):
+        super().__init__()
+        self.weight = nn.Parameter(torch.empty(out_ch, in_ch, 3, 3))
+        _kaiming_fan_in_(self.weight)
+        self.bias = nn.Parameter(torch.zeros(out_ch))
+        self.register_buffer("u", _l2_normalize(torch.randn(out_ch)))
+        self.register_buffer("v", _l2_normalize(torch.randn(in_ch * 9)))
+
+    def forward(self, x: torch.Tensor, mode: str) -> torch.Tensor:
+        w_mat = self.weight.reshape(self.weight.shape[0], -1)
+        u, v = self.u, self.v
+        if mode in ("train", "frozen"):
+            with torch.no_grad():
+                w_sg = w_mat.detach()
+                v = _l2_normalize(w_sg.t() @ u)
+                u = _l2_normalize(w_sg @ v)
+                if mode == "train":
+                    self.u.copy_(u)
+                    self.v.copy_(v)
+        elif mode != "eval":
+            raise ValueError(f"mode must be one of {MODES}, got {mode!r}")
+        sigma = torch.dot(u, w_mat @ v)
+        return F.conv2d(x, self.weight / sigma, self.bias, padding=1)
 
 
 def upsample2x(x: torch.Tensor, method: str = "NN") -> torch.Tensor:
-    if method not in ("NN", "nearest"):
-        raise NotImplementedError(f"upsample2x({method!r}) is not ported yet")
-    return F.interpolate(x, scale_factor=2, mode="nearest")
+    """x2 by nearest neighbour, or bilinear with align_corners=True (output
+    j samples the input at j*(H-1)/(2H-1)), which the JAX package computes
+    as two constant-matrix contractions: the two agree to rounding."""
+    if method in ("NN", "nearest"):
+        return F.interpolate(x, scale_factor=2, mode="nearest")
+    if method == "bilinear":
+        return F.interpolate(x, size=(2 * x.shape[2], 2 * x.shape[3]), mode="bilinear",
+                             align_corners=True)
+    raise ValueError(method)
+
+
+def transposed_conv(features: int, kernel: int, padding: int) -> nn.ConvTranspose2d:
+    conv = nn.ConvTranspose2d(features, features, kernel, stride=2, padding=padding)
+    with torch.no_grad():
+        conv.weight.normal_(0.0, 0.02)
+        conv.bias.zero_()
+    return conv
 
 
 class Upsampler(nn.Module):
-    """Front of an up block: nearest-neighbour x2, or a learned 2x2 stride-2
-    transposed conv ("Conv2") with N(0, 0.02) weights."""
+    """Front of an up block: nearest-neighbour or bilinear (align_corners)
+    x2, or a learned transposed conv with N(0, 0.02) weights: "Conv2" (2x2,
+    stride 2) or "Conv4" (4x4, stride 2, padding 1, flax's "SAME" padding
+    of that kernel: two rows and columns of the dilated input on each
+    side)."""
 
     def __init__(self, up_type: str = "NN", features: Optional[int] = None):
         super().__init__()
         self.up_type = up_type
         if up_type == "Conv2":
-            self.conv = nn.ConvTranspose2d(features, features, 2, stride=2)
-            with torch.no_grad():
-                self.conv.weight.normal_(0.0, 0.02)
-                self.conv.bias.zero_()
-        elif up_type != "NN":
-            raise NotImplementedError(f"Upsampler({up_type!r}) is not ported yet")
+            self.conv = transposed_conv(features, 2, 0)
+        elif up_type == "Conv4":
+            self.conv = transposed_conv(features, 4, 1)
+        elif up_type not in ("NN", "bilinear"):
+            raise NotImplementedError(f"Upsampler({up_type!r})")
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if self.up_type == "Conv2":
+        if self.up_type in ("Conv2", "Conv4"):
             return self.conv(x)
-        return upsample2x(x, "NN")
+        return upsample2x(x, self.up_type)
 
 
 class FixableDropout(nn.Module):
@@ -242,23 +363,27 @@ def dropout_step(nets: nn.Module, seed: Optional[int],
 
 class ResConvDown(nn.Module):
     """Strided-conv residual down block: down-conv(s2) ->
-    [conv3-norm-lrelu-conv3-norm] + 1x1(skip) -> lrelu -> optional dropout."""
+    [conv3-norm-lrelu-conv3-norm] + 1x1(skip) -> lrelu -> optional dropout.
+    With ``num_domains`` > 1 every norm is domain-specific and conv1 is a
+    :class:`TorchSNConv3x3`: the reference's domain-specific block
+    spectral-norms conv1 in both of its branches."""
 
     def __init__(self, in_ch: int, out_ch: int, norm: str = "batch",
-                 dropout: Optional[float] = None):
+                 dropout: Optional[float] = None, num_domains: int = 1):
         super().__init__()
         self.down = conv3x3(in_ch, in_ch, stride=2)
-        self.conv1 = conv3x3(in_ch, out_ch)
-        self.norm1 = Norm2d(norm, out_ch)
+        self.conv1 = TorchSNConv3x3(in_ch, out_ch) if num_domains > 1 else conv3x3(in_ch, out_ch)
+        self.norm1 = make_norm(norm, out_ch, num_domains)
         self.conv2 = conv3x3(out_ch, out_ch)
-        self.norm2 = Norm2d(norm, out_ch)
+        self.norm2 = make_norm(norm, out_ch, num_domains)
         self.conv_input = conv1x1(in_ch, out_ch)
         self.dropout = FixableDropout(dropout) if dropout is not None else None
 
-    def forward(self, x: torch.Tensor, mode: str) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, mode: str, domain_id: int = 0) -> torch.Tensor:
         x = self.down(x)
-        h = lrelu(self.norm1(self.conv1(x), mode))
-        h = self.norm2(self.conv2(h), mode)
+        h = self.conv1(x, mode) if isinstance(self.conv1, TorchSNConv3x3) else self.conv1(x)
+        h = lrelu(apply_norm(self.norm1, h, mode, domain_id))
+        h = apply_norm(self.norm2, self.conv2(h), mode, domain_id)
         res = lrelu(self.conv_input(x) + h)
         if self.dropout is not None:
             res = self.dropout(res, mode)
@@ -292,15 +417,38 @@ class ResUp(nn.Module):
 
 class InConv(nn.Module):
     """Encoder stem: conv3-norm-lrelu-conv3-norm (the caller applies the
-    trailing lrelu)."""
+    trailing lrelu); domain-specific norms with ``num_domains`` > 1."""
 
-    def __init__(self, in_ch: int, out_ch: int, norm: str = "batch"):
+    def __init__(self, in_ch: int, out_ch: int, norm: str = "batch", num_domains: int = 1):
         super().__init__()
         self.conv1 = conv3x3(in_ch, out_ch)
-        self.norm1 = Norm2d(norm, out_ch)
+        self.norm1 = make_norm(norm, out_ch, num_domains)
         self.conv2 = conv3x3(out_ch, out_ch)
-        self.norm2 = Norm2d(norm, out_ch)
+        self.norm2 = make_norm(norm, out_ch, num_domains)
 
-    def forward(self, x: torch.Tensor, mode: str) -> torch.Tensor:
-        x = lrelu(self.norm1(self.conv1(x), mode))
-        return self.norm2(self.conv2(x), mode)
+    def forward(self, x: torch.Tensor, mode: str, domain_id: int = 0) -> torch.Tensor:
+        x = lrelu(apply_norm(self.norm1, self.conv1(x), mode, domain_id))
+        return apply_norm(self.norm2, self.conv2(x), mode, domain_id)
+
+
+class SelfAttention2d(nn.Module):
+    """SAGAN-style self-attention over the pixels with 1x1 query, key (C/8
+    channels) and value projections and a learned gate ``gamma`` (zero at
+    init): gamma * attention(x) + x."""
+
+    def __init__(self, ch: int):
+        super().__init__()
+        inner = max(ch // 8, 1)
+        self.query = conv1x1(ch, inner)
+        self.key = conv1x1(ch, inner)
+        self.value = conv1x1(ch, ch)
+        self.gamma = nn.Parameter(torch.zeros(()))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        n, c, h, w = x.shape
+        q = self.query(x).reshape(n, -1, h * w)
+        k = self.key(x).reshape(n, -1, h * w)
+        v = self.value(x).reshape(n, c, h * w)
+        attn = torch.softmax(torch.einsum("ndq,ndk->nqk", q, k), dim=-1)
+        out = torch.einsum("nqk,nck->ncq", attn, v).reshape(n, c, h, w)
+        return self.gamma * out + x

@@ -11,8 +11,9 @@ reference solver's ``get_network``
   Unet… / UnetTransformer…
 
 ``16`` -> feature_reduce 4, ``64`` -> feature_reduce 1. :func:`build_modules`
-builds the FCN family without STN; STN, DS_FCN, Unet and UNETR bundles are
-not ported yet and raise ``NotImplementedError``.
+builds the FCN family (with or without the STN, DS_FCN's domain-specific
+encoder) and the Unet family (``models/unet.py``); UNETR bundles are not
+ported yet and raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -22,7 +23,7 @@ from typing import Optional
 
 from torch import nn
 
-from maxstyle_tpu_torch.models.encoder_decoder import Decoder, DualBranchEncoder
+from maxstyle_tpu_torch.models.encoder_decoder import Decoder, DualBranchEncoder, Encoder
 
 
 @dataclasses.dataclass(frozen=True)
@@ -97,28 +98,46 @@ def parse_network_type(network_type: str, intensity_norm_type: str = "min_max") 
     )
 
 
+def shape_input_channels(spec: NetworkSpec, image_ch: int, num_classes: int) -> int:
+    """Channels of the STN's input: the segmentation, plus one image
+    ("w_image", "w_recon_image") or two ("w_dual_image")."""
+    if spec.shape_input_mode in ("w_image", "w_recon_image"):
+        return num_classes + image_ch
+    if spec.shape_input_mode == "w_dual_image":
+        return num_classes + 2 * image_ch
+    return num_classes
+
+
 def build_modules(spec: NetworkSpec, image_ch: int = 1, num_classes: int = 4,
                   encoder_dropout: Optional[float] = None,
                   decoder_dropout: Optional[float] = None) -> nn.ModuleDict:
     """The module bundle {image_encoder, segmentation_decoder,
-    [image_decoder]} of an FCN spec."""
-    if spec.is_unet:
-        raise NotImplementedError("Unet/UNETR bundles are not ported yet")
-    if spec.has_stn:
-        raise NotImplementedError("STN (shape encoder/decoder) is not ported yet")
-    if spec.num_domains > 1:
-        raise NotImplementedError("DS_FCN (domain-specific BN) is not ported yet")
+    [image_decoder], [shape_encoder, shape_decoder]} of a spec."""
     r = spec.feature_reduce
     latent = 512 // r
-    modules = nn.ModuleDict()
-    modules["image_encoder"] = DualBranchEncoder(
-        image_ch, z_level_1_ch=latent, z_level_2_ch=latent, feature_reduce=r,
-        norm="batch", dropout=encoder_dropout)
-    modules["segmentation_decoder"] = Decoder(
-        latent, out_ch=num_classes, feature_reduce=r, up_type="NN", norm="batch",
-        dropout=decoder_dropout, last_act=None)
-    if spec.has_image_recon:
-        modules["image_decoder"] = Decoder(
-            latent, out_ch=image_ch, feature_reduce=r, up_type=spec.image_decoder_up,
-            norm="batch", dropout=decoder_dropout, last_act=spec.image_decoder_last_act)
+    if spec.is_unet:
+        from maxstyle_tpu_torch.models.unet import build_unet_modules
+        modules = build_unet_modules(spec, image_ch=image_ch, num_classes=num_classes,
+                                     encoder_dropout=encoder_dropout,
+                                     decoder_dropout=decoder_dropout)
+    else:
+        modules = nn.ModuleDict()
+        modules["image_encoder"] = DualBranchEncoder(
+            image_ch, z_level_1_ch=latent, z_level_2_ch=latent, feature_reduce=r,
+            norm="batch", dropout=encoder_dropout, num_domains=spec.num_domains)
+        modules["segmentation_decoder"] = Decoder(
+            latent, out_ch=num_classes, feature_reduce=r, up_type="NN", norm="batch",
+            dropout=decoder_dropout, last_act=None)
+        if spec.has_image_recon:
+            modules["image_decoder"] = Decoder(
+                latent, out_ch=image_ch, feature_reduce=r, up_type=spec.image_decoder_up,
+                norm="batch", dropout=decoder_dropout,
+                last_act=spec.image_decoder_last_act)
+    if spec.has_stn:
+        modules["shape_encoder"] = Encoder(
+            shape_input_channels(spec, image_ch, num_classes), latent, feature_reduce=r,
+            norm="batch", dropout=encoder_dropout, act="relu")
+        modules["shape_decoder"] = Decoder(
+            latent, out_ch=num_classes, feature_reduce=r, up_type="NN", norm="batch",
+            dropout=decoder_dropout, last_act=None)
     return modules

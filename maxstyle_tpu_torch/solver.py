@@ -15,7 +15,14 @@ boundary. The MaxStyle op is the fused one of ``ops/maxstyle_kernels.py``
 autograd op of ``ops/maxstyle.py`` is its reference in the tests. The
 method branches' procedures are here too: the MixStyle/DSU encoder replay,
 latent-space hard example generation (LSM) and the full forward ``run``.
-STN is not ported yet.
+
+Every network family of the grammar but UNETR is served: the STN's shape
+refinement (``recon_shape``, the shape losses, ``run`` and ``predict``),
+DS_FCN's domain-specific encoder (domain 0 in the standard pass, domain 1,
+whose statistics are trained, in the hard-example pass) and the Unet family,
+whose codes are skip pyramids: lists of five tensors, or the bottom one of
+them as ``z_i`` unless the image decoder is a ``UnetDecoder``
+(``Unet_im_recon``).
 """
 
 from __future__ import annotations
@@ -28,7 +35,7 @@ from torch import nn
 
 from maxstyle_tpu_torch import losses
 from maxstyle_tpu_torch.config import ExperimentConfig, MaxStyleConfig
-from maxstyle_tpu_torch.models.encoder_decoder import decoder_style_channels
+from maxstyle_tpu_torch.models.encoder_decoder import Decoder, decoder_style_channels
 from maxstyle_tpu_torch.models.registry import NetworkSpec, build_modules, parse_network_type
 from maxstyle_tpu_torch.ops import latent_masking as lm
 from maxstyle_tpu_torch.ops import maxstyle as ms
@@ -62,12 +69,47 @@ class TrainState:
 
 @dataclasses.dataclass
 class ForwardAux:
-    """Tensors of the standard pass that later branches reuse."""
+    """Tensors of the standard pass that later branches reuse (a Unet's
+    codes are lists of tensors)."""
 
-    z_i: torch.Tensor
-    z_s: torch.Tensor
+    z_i: object
+    z_s: object
     recon_image: Optional[torch.Tensor]
     y0: torch.Tensor
+    p_recon: Optional[torch.Tensor] = None
+
+
+# the softmax temperature of the STN's input logits (advanced_triplet…:87)
+STN_TEMPERATURE = 2.0
+
+
+def _detach(code):
+    """A code, or each tensor of a Unet's pyramid, detached."""
+    if isinstance(code, (list, tuple)):
+        return [c.detach() for c in code]
+    return code.detach()
+
+
+def _batch_size(code) -> int:
+    return (code[0] if isinstance(code, (list, tuple)) else code).shape[0]
+
+
+def construct_input(segmentation: torch.Tensor, image: Optional[torch.Tensor],
+                    num_classes: int, apply_softmax: bool, is_labelmap: bool,
+                    temperature: float = 2.0) -> torch.Tensor:
+    """The STN's input (NCHW): a label map [N,H,W] one-hot encoded and
+    detached, or logits softened by softmax(x / temperature), or the
+    segmentation as given; with ``image`` its detached channels follow.
+    (The JAX function's label smoothing has no caller in either package.)"""
+    if is_labelmap:
+        seg = losses.one_hot(segmentation.long(), num_classes).detach()
+    elif apply_softmax:
+        seg = torch.softmax(segmentation / temperature, dim=1)
+    else:
+        seg = segmentation
+    if image is not None:
+        return torch.cat([seg, image.detach()], dim=1)
+    return seg
 
 
 def make_optimizer(optimizer_type: str, params, lr: float,
@@ -159,17 +201,27 @@ class TripletSegmentationSolver:
     # ------------------------------------------------------------------
 
     def _route_codes(self, z, z_s):
-        """(z, filtered) -> (z_i, z_s) per the network_type routing."""
+        """(z, filtered) -> (z_i, z_s) per the network_type routing. A
+        Unet's z_i is the bottom of the pyramid unless its image decoder
+        takes the whole pyramid (``Unet_im_recon``)."""
+        if self.spec.is_unet:
+            z_i = z if "Unet_im_recon" in self.spec.network_type else z[-1]
+            return z_i, z_s
         if self.spec.no_filter:
             return z, z
         z_i = z_s if self.spec.share_code else z
         return z_i, z_s
 
-    def encode_image(self, nets, x, *, mode: str):
-        z = nets["image_encoder"].encode(x, mode)
+    def encode_image(self, nets, x, *, mode: str, domain_id: int = 0):
+        """(z_i, z_s) of image x; ``domain_id`` picks DS_FCN's norms."""
+        z = nets["image_encoder"].encode(x, mode, domain_id=domain_id)
         return self.filter_code(nets, z, mode=mode)
 
     def filter_code(self, nets, z, *, mode: str):
+        if self.spec.is_unet:
+            z_s = (nets["image_encoder"].filter_code(z, mode) if self.spec.unet_code_filter
+                   else z)
+            return self._route_codes(z, z_s)
         if self.spec.no_filter:
             return z, z
         z_s = nets["image_encoder"].filter_code(z, mode)
@@ -178,14 +230,45 @@ class TripletSegmentationSolver:
     def decode(self, nets, name: str, code, *, mode: str, style_fns=None, **extra):
         return nets[name](code, mode, style_fns=style_fns, **extra)
 
+    def recon_shape(self, nets, seg, *, is_label_map: bool, image=None, recon_image=None,
+                    mode: str, separate_training: Optional[bool] = None):
+        """The STN's refinement S' = shape_decoder(shape_encoder(input)) of a
+        label map or logits ``seg``, with the image, the reconstruction or
+        both beside it by the network type; without an STN, ``seg``. With
+        ``separate_training`` logits are detached first."""
+        if not self.spec.has_stn:
+            return seg
+        if separate_training is None:
+            separate_training = self.config.learning.separate_training
+        if separate_training and not is_label_map:
+            seg = seg.detach()
+        mode_in = self.spec.shape_input_mode
+        if mode_in == "w_image":
+            img = image
+        elif mode_in == "w_recon_image":
+            img = recon_image
+        elif mode_in == "w_dual_image":
+            img = torch.cat([image, recon_image], dim=1)
+        else:
+            img = None
+        inp = construct_input(seg, img, self.num_classes, apply_softmax=not is_label_map,
+                              is_labelmap=is_label_map, temperature=STN_TEMPERATURE)
+        code = nets["shape_encoder"](inp, mode)
+        return nets["shape_decoder"](code, mode)
+
     # ------------------------------------------------------------------
     # standard training (advanced_triplet…:731-786)
     # ------------------------------------------------------------------
 
     def standard_training(self, nets, clean_image, label, perturbed_image, *,
-                          mode: str = "train"):
+                          mode: str = "train", domain_id: int = 0,
+                          compute_gt_recon: bool = True):
+        """(seg, recon, gt shape, pred shape) losses of one pass on
+        ``perturbed_image`` and the pass's ForwardAux. The STN's gt loss
+        refines the label map (only with ``compute_gt_recon``), its pred
+        loss the prediction; both are zero without an STN."""
         zero = torch.zeros((), device=clean_image.device)
-        z_i, z_s = self.encode_image(nets, perturbed_image, mode=mode)
+        z_i, z_s = self.encode_image(nets, perturbed_image, mode=mode, domain_id=domain_id)
         y0 = self.decode(nets, "segmentation_decoder", z_s, mode=mode)
         seg_loss = losses.cross_entropy_2d(y0, label, weight=self.class_weights)
         if self.spec.has_image_recon:
@@ -194,9 +277,19 @@ class TripletSegmentationSolver:
         else:
             recon = None
             image_recon_loss = zero
-        aux = ForwardAux(z_i=z_i, z_s=z_s, recon_image=recon, y0=y0)
-        # no STN: the two shape losses are zero
-        return (seg_loss, image_recon_loss, zero, zero), aux
+        gt_shape_loss = pred_shape_loss = zero
+        p_recon = y0
+        if self.spec.has_stn:
+            if compute_gt_recon:
+                gt_recon = self.recon_shape(nets, label, is_label_map=True,
+                                            image=perturbed_image, recon_image=recon, mode=mode)
+                gt_shape_loss = losses.cross_entropy_2d(gt_recon, label,
+                                                        weight=self.class_weights)
+            p_recon = self.recon_shape(nets, y0, is_label_map=False, image=perturbed_image,
+                                       recon_image=recon, mode=mode)
+            pred_shape_loss = losses.cross_entropy_2d(p_recon, label, weight=self.class_weights)
+        aux = ForwardAux(z_i=z_i, z_s=z_s, recon_image=recon, y0=y0, p_recon=p_recon)
+        return (seg_loss, image_recon_loss, gt_shape_loss, pred_shape_loss), aux
 
     # ------------------------------------------------------------------
     # hard-example training (advanced_triplet…:843-889)
@@ -204,21 +297,37 @@ class TripletSegmentationSolver:
 
     def hard_example_training(self, nets, perturbed_image, clean_image, label,
                               perturbed_seg=None, standard_input_image=None,
-                              standard_recon_image=None):
+                              standard_recon_image=None, commit_stats: bool = True):
         """Train on a hard example (a stylized, masked-code or attacked
-        image) with frozen BatchNorm; no image gives zero losses. Returns
-        (seg, recon, shape, perturbed-seg shape) losses. ``perturbed_seg``,
-        ``standard_input_image`` and ``standard_recon_image`` feed only the
-        STN's shape loss, so without an STN (the only kind ported) the last
-        loss is zero."""
+        image); no image gives zero image losses. Returns (seg, recon,
+        shape, perturbed-seg shape) losses. BatchNorm is frozen, except for
+        DS_FCN, whose pass runs domain 1 in "train" mode, so its statistics
+        (and those of every other norm the pass reaches) are updated; with
+        ``commit_stats`` False they are not written, as when the JAX step
+        drops the statistics a branch's pass returns. With an STN, a
+        ``perturbed_seg`` (a masked-code segmentation) adds the refinement
+        loss of that segmentation, beside ``standard_input_image`` and
+        ``standard_recon_image`` as its images."""
         zero = torch.zeros((), device=clean_image.device)
-        if perturbed_image is None:
-            return zero, zero, zero, zero
-        norm = intensity_norm_fn(self.config.data.intensity_norm_type)
-        perturbed_image = norm(perturbed_image).detach()
-        (seg_loss, recon_loss, _, shape_loss), _ = self.standard_training(
-            nets, clean_image, label, perturbed_image, mode="frozen")
-        return seg_loss, recon_loss, shape_loss, zero
+        if self.spec.num_domains > 1:
+            mode, domain_id = ("train" if commit_stats else "frozen"), 1
+        else:
+            mode, domain_id = "frozen", 0
+        seg_loss = recon_loss = shape_loss = zero
+        if perturbed_image is not None:
+            norm = intensity_norm_fn(self.config.data.intensity_norm_type)
+            perturbed_image = norm(perturbed_image).detach()
+            (seg_loss, recon_loss, _, shape_loss), _ = self.standard_training(
+                nets, clean_image, label, perturbed_image, mode=mode, domain_id=domain_id,
+                compute_gt_recon=False)
+        perturbed_recon_loss = zero
+        if self.spec.has_stn and perturbed_seg is not None:
+            p_recon = self.recon_shape(nets, perturbed_seg, is_label_map=False,
+                                       image=standard_input_image,
+                                       recon_image=standard_recon_image, mode=mode)
+            perturbed_recon_loss = losses.basic_loss_fn(p_recon, label,
+                                                        loss_type="cross entropy")
+        return seg_loss, recon_loss, shape_loss, perturbed_recon_loss
 
     # ------------------------------------------------------------------
     # MaxStyle generation — the inner adversarial loop
@@ -238,8 +347,9 @@ class TripletSegmentationSolver:
         then frozen. Inner Adam(lr) follows optax.adam, on gradients
         multiplied by ``learnable_mask``. ``style_init`` = ({idx: params},
         {idx: state}) pins the draws. Returns the detached stylized image
-        (and the final style params if ``return_style``)."""
-        code = image_code.detach()
+        (and the final style params if ``return_style``). ``image_code`` is
+        a Unet's pyramid when the image decoder is a ``UnetDecoder``."""
+        code = _detach(image_code)
         indexes = tuple(ms_cfg.decoder_layers_indexes)
         if not indexes:
             with torch.no_grad():
@@ -254,13 +364,14 @@ class TripletSegmentationSolver:
             style_params, style_state = {}, {}
             for idx in indexes:
                 style_params[idx], style_state[idx] = ms.init_maxstyle(
-                    generator, code.shape[0], chans[idx], ms_cfg)
+                    generator, _batch_size(code), chans[idx], ms_cfg)
         mask = ms.learnable_mask(ms_cfg)
 
         # the decoder prefix before the first hook sees no style op: compute
-        # it once, outside the loop
+        # it once, outside the loop (the FCN Decoder can be split; a
+        # UnetDecoder decodes in full)
         min_idx = min(indexes)
-        split = min_idx > 0
+        split = min_idx > 0 and isinstance(nets["image_decoder"], Decoder)
         start = code
         if split:
             with torch.no_grad():
@@ -277,9 +388,9 @@ class TripletSegmentationSolver:
                 return hook
 
             style_fns = {idx: make_hook(idx) for idx in indexes}
+            extra = {"start_at_hook": min_idx} if split else {}
             recon = self.decode(nets, "image_decoder", start, mode="frozen",
-                                style_fns=style_fns,
-                                start_at_hook=min_idx if split else None)
+                                style_fns=style_fns, **extra)
             return recon, new_st
 
         # the first decode caches the stat spreads
@@ -354,16 +465,19 @@ class TripletSegmentationSolver:
 
     def hard_example_generation(self, nets, clean_image, label, z_i, z_s, *, lda_cfg,
                                 generator: torch.Generator, draws=None):
-        """Mask z_i by its gradient probe and decode a corrupted image, with
-        frozen BatchNorm. Returns the perturbed image, or None when the
-        config masks no image code, with ``draws`` ({"image": draws of ``lm.draw_masking``}) pinning the
-        masking's draws.
+        """Mask z_i by its gradient probe and decode a corrupted image, and
+        with an STN mask z_s and decode a corrupted segmentation, with
+        frozen BatchNorm. Returns (perturbed image, perturbed segmentation),
+        each None when the config masks no such code; ``draws`` ({"image":
+        ..., "shape": ...}, draws of ``lm.draw_masking``) pins the masking's
+        draws.
 
-        The JAX package also masks z_s and decodes a corrupted segmentation,
-        which reaches a loss only through an STN's shape loss
-        (``hard_example_training``); the port has no STN, so it skips that
-        probe and decode."""
-        perturbed_image = None
+        The segmentation's decode keeps its graph to the segmentation
+        decoder's weights, as in the JAX package. It reaches a loss only
+        through the STN's refinement (``hard_example_training``), so
+        without an STN the port skips that probe and decode, which the JAX
+        package computes and drops."""
+        perturbed_image = perturbed_seg = None
         if lda_cfg.mask_image_code and self.spec.has_image_recon:
             c = lda_cfg.image_code
             code = z_i.detach()
@@ -379,7 +493,22 @@ class TripletSegmentationSolver:
                 random_threshold=c.random_threshold, loss_type=c.loss_name, if_detach=True)
             with torch.no_grad():
                 perturbed_image = self.decode(nets, "image_decoder", masked, mode="frozen")
-        return perturbed_image
+        if lda_cfg.mask_shape_code and self.spec.has_stn:
+            c = lda_cfg.shape_code
+            code = z_s.detach()
+            d = (draws["shape"] if draws is not None else
+                 lm.draw_masking(generator, code.shape, c.mask_type, c.max_threshold))
+
+            def dec_seg(v):
+                return self.decode(nets, "segmentation_decoder", v, mode="frozen")
+
+            masked, _ = lm.perturb_latent_code(
+                code, dec_seg, label, num_classes=self.num_classes, draws=d,
+                perturb_type=c.mask_type, threshold=c.max_threshold, if_soft=c.if_soft,
+                random_threshold=c.random_threshold, loss_type=c.loss_name, if_detach=True)
+            perturbed_seg = self.decode(nets, "segmentation_decoder", masked.detach(),
+                                        mode="frozen")
+        return perturbed_image, perturbed_seg
 
     # ------------------------------------------------------------------
     # full forward (advanced_triplet…run:310-328)
@@ -387,7 +516,8 @@ class TripletSegmentationSolver:
 
     def run(self, nets, image, *, mode: str = "train", normalize_input: bool = False):
         """(recon_image or None, init_predict, refined_predict) of image
-        [N,C,H,W]; without an STN the refined prediction is the initial one."""
+        [N,C,H,W]; the STN refines the prediction, and without one the
+        refined prediction is the initial one."""
         if normalize_input:
             image = intensity_norm_fn(self.config.data.intensity_norm_type)(image)
         z_i, z_s = self.encode_image(nets, image, mode=mode)
@@ -395,7 +525,9 @@ class TripletSegmentationSolver:
         recon = None
         if self.spec.has_image_recon:
             recon = self.decode(nets, "image_decoder", z_i, mode=mode)
-        return recon, y0, y0
+        refined = self.recon_shape(nets, y0, is_label_map=False, image=image,
+                                   recon_image=recon, mode=mode)
+        return recon, y0, refined
 
     # ------------------------------------------------------------------
     # inference (advanced_triplet…:673-691)
@@ -405,15 +537,19 @@ class TripletSegmentationSolver:
     def predict(self, nets, image, *, softmax: bool = False, n_iter: int = 1,
                 normalize_input: bool = True):
         """Eval-mode forward of image [N,H,W,C] -> logits (or probabilities)
-        [N,H,W,num_classes]. ``n_iter`` > 1 asks the JAX package's predict
-        for the STN's refinement; the port has no STN (the registry refuses
-        STN networks), so the output is the segmentation decoder's for every
-        ``n_iter``."""
+        [N,H,W,num_classes]: the segmentation decoder's, or with an STN and
+        ``n_iter`` > 1 its refinement (logits not detached first)."""
         x = image.permute(0, 3, 1, 2).float()
         if normalize_input:
             x = intensity_norm_fn(self.config.data.intensity_norm_type)(x)
-        _, z_s = self.encode_image(nets, x, mode="eval")
+        z_i, z_s = self.encode_image(nets, x, mode="eval")
         pred = self.decode(nets, "segmentation_decoder", z_s, mode="eval")
+        if self.spec.has_stn and n_iter > 1:
+            recon = None
+            if self.spec.has_image_recon:
+                recon = self.decode(nets, "image_decoder", z_i, mode="eval")
+            pred = self.recon_shape(nets, pred, is_label_map=False, image=x, recon_image=recon,
+                                    mode="eval", separate_training=False)
         if softmax:
             pred = torch.softmax(pred, dim=1)
         return pred.permute(0, 2, 3, 1)

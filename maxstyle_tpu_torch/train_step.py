@@ -122,7 +122,8 @@ def make_train_step(solver: TripletSegmentationSolver):
                     nets, aux.z_i, reference_segmentation=label, ms_cfg=cfg.max_style,
                     generator=generator, style_init=ov.get("style_init"))
                 h_seg, h_rec, h_shape1, h_shape2 = solver.hard_example_training(
-                    nets, stylized, clean, label)
+                    nets, stylized, clean, label, standard_input_image=image_n.detach(),
+                    standard_recon_image=aux.recon_image)
                 ms_loss = h_rec + h_seg + h_shape1 + h_shape2
                 m["loss/hard/total"] = ms_loss
                 m["loss/hard/seg"] = h_seg

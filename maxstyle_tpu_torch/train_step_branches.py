@@ -12,13 +12,17 @@ Every random number comes from the step's generator, drawn by the ops'
 ``overrides["branch_draws"][flag]``) gives them:
 
 * ``mix_style`` / ``DSU``: {hook: ``ms.draw_mixstyle`` draws};
-* ``latent_DA``: {"image": ``lm.draw_masking`` draws};
+* ``latent_DA``: {"image": ..., "shape": ...}, ``lm.draw_masking`` draws
+  ("shape" only with an STN);
 * ``RSC``: {"image": ..., "shape": ...}, ``lm.draw_masking`` draws;
 * ``rand_conv``: a list of three ``rc.draw_rand_conv`` draws, one a view;
 * ``adv_noise``: {"d": ...}; ``adv_bias``: {"cp": ...}.
 
 The branches run inside the step's dropout context, so their "train" and
-"frozen" decodes see the step's one dropout mask a layer.
+"frozen" decodes see the step's one dropout mask a layer. With an STN each
+branch adds its refinement terms as the JAX package does; a DS_FCN
+hard-example pass of a branch does not write the statistics it computes
+(the JAX step drops them).
 """
 
 from __future__ import annotations
@@ -39,12 +43,13 @@ def latent_da_branch(solver, cfg, nets, aux, *, clean_image, image_n, label, gen
                      draws, metrics):
     """LSM (MICCAI 2021): hard examples decoded from masked latent codes
     (train_adv…:201-246)."""
-    perturbed_image = solver.hard_example_generation(
+    perturbed_image, perturbed_seg = solver.hard_example_generation(
         nets, clean_image.detach(), label, aux.z_i, aux.z_s, lda_cfg=cfg.latent_DA,
         generator=generator, draws=draws)
     h_seg, h_rec, h_shape, h_pseg = solver.hard_example_training(
-        nets, perturbed_image, clean_image, label,
-        standard_input_image=image_n.detach(), standard_recon_image=aux.recon_image)
+        nets, perturbed_image, clean_image, label, perturbed_seg=perturbed_seg,
+        standard_input_image=image_n.detach(), standard_recon_image=aux.recon_image,
+        commit_stats=False)
     loss = h_seg + h_rec + h_shape + h_pseg
     metrics["loss/hard/total"] = metrics["loss/hard/total"] + loss
     metrics["loss/hard/seg"] = metrics["loss/hard/seg"] + h_seg
@@ -82,8 +87,12 @@ def rsc_branch(solver, cfg, nets, aux, *, clean_image, image_n, label, generator
     _, new_z_s = solver.filter_code(nets, z_i_masked, mode="frozen")
     seg_logit_1 = solver.decode(nets, "segmentation_decoder", new_z_s, mode="frozen")
     l_seg_reg = losses.cross_entropy_2d(seg_logit_1, label, weight=solver.class_weights)
-    # no STN: the shape losses are zero
     loss = l_rec_reg + l_seg_2 + l_seg_reg
+    if solver.spec.has_stn:
+        for logit, rec in ((seg_logit, aux.recon_image), (seg_logit_1, recon)):
+            refined = solver.recon_shape(nets, logit, is_label_map=False, image=image_n,
+                                         recon_image=rec, mode="frozen")
+            loss = loss + losses.cross_entropy_2d(refined, label, weight=solver.class_weights)
     metrics["loss/hard/RSC"] = metrics["loss/hard/RSC"] + loss
     return loss
 
@@ -100,6 +109,10 @@ def mixstyle_dsu_branch(solver, cfg, nets, aux, *, clean_image, image_n, label, 
     if solver.spec.has_image_recon:
         recon = solver.decode(nets, "image_decoder", aug_z_i, mode="frozen")
         loss = losses.image_recon_loss(recon, clean_image.detach(), solver.rec_loss_type) + loss
+    if solver.spec.has_stn:
+        refined = solver.recon_shape(nets, seg_logit, is_label_map=False, image=image_n,
+                                     recon_image=aux.recon_image, mode="frozen")
+        loss = loss + losses.cross_entropy_2d(refined, label, weight=solver.class_weights)
     key = "loss/hard/DSU" if use_dsu else "loss/hard/mix_style"
     metrics[key] = metrics[key] + loss
     return loss
@@ -117,23 +130,26 @@ def rand_conv_branch(solver, cfg, nets, aux, *, clean_image, image_n, label, gen
                      draws, metrics):
     """RandConv consistency (train_adv…:289-326): three random-conv views of
     the noisy input, a KL to their mean prediction (weight 10) and their
-    reconstruction losses. ``learning.randconv_view_bn`` "frozen" (default)
+    reconstruction losses, and with an STN a KL of the refined predictions
+    (weight 10) too. ``learning.randconv_view_bn`` "frozen" (default)
     normalizes the views with batch statistics and writes nothing; "train"
     also updates the running statistics after each view, as the reference
     does. Both give the same loss and gradients."""
     lamda = 10.0
     mode = "train" if cfg.learning.randconv_view_bn == "train" else "frozen"
-    recs, init_probs = [], []
+    recs, init_probs, final_probs = [], [], []
     for i in range(N_RANDCONV_VIEWS):
         d = draws[i] if draws is not None else rc.draw_rand_conv(generator, image_n.shape[1])
         aug = rc.rand_conv_augment(image_n, d)
-        recon, y0, _ = solver.run(nets, aug, mode=mode, normalize_input=True)
+        recon, y0, refined = solver.run(nets, aug, mode=mode, normalize_input=True)
         recs.append(recon)
         init_probs.append(torch.softmax(y0, dim=1))
+        final_probs.append(torch.softmax(refined, dim=1))
     loss = torch.zeros((), device=image_n.device)
-    for rec, p_init in zip(recs, init_probs):
+    for rec, p_init, p_final in zip(recs, init_probs, final_probs):
         l_seg = lamda * _kl_to_mean(init_probs, p_init)
-        # no STN: the refined predictions' KL term is zero
+        if solver.spec.has_stn:
+            l_seg = l_seg + lamda * _kl_to_mean(final_probs, p_final)
         if rec is not None:
             l_seg = losses.image_recon_loss(rec, clean_image.detach(),
                                             solver.rec_loss_type) + l_seg
@@ -166,7 +182,7 @@ def adv_branch(solver, cfg, nets, aux, *, clean_image, image_n, label, generator
             if_norm_image=False)
     h_seg, h_rec, h_shape, h_pseg = solver.hard_example_training(
         nets, adv_image, clean_image, label, standard_input_image=image_n.detach(),
-        standard_recon_image=aux.recon_image)
+        standard_recon_image=aux.recon_image, commit_stats=False)
     loss = h_seg + h_rec + h_shape + h_pseg + consistency
     metrics[f"loss/hard/{kind}"] = metrics[f"loss/hard/{kind}"] + loss
     return loss

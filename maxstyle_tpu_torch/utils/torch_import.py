@@ -16,12 +16,18 @@ port state dict by renaming alone:
                        ``num_batches_tracked`` is dropped (the port's
                        ``BatchNorm`` keeps no such buffer)
 
+  spectral-norm conv   ``{name}.weight_orig``, ``.weight_u``,     -> ``weight``, ``u``, ``v``
+                       ``.weight_v``, ``.bias``                      and ``bias``
+  domain-specific BN   ``{name}.bns.{d}.*``                       -> ``bn_domain{d}.*``
+
+Converters: the FCN family's encoder (plain or domain-specific, DS_FCN),
+code decoupler and decoders, the STN's shape encoder and decoder (a plain
+encoder and an NN decoder), the Unet family's encoder (with its per-level
+code filters) and decoder, and the baseline zoo's FCN (``convert_fcn``).
 Every key of the file is either converted or a ``num_batches_tracked``;
 anything else raises, and the caller loads the result with ``strict=True``,
-so nothing is skipped on either side. The models the port has not ported yet
-have no converter: ``convert_module_state_dict`` refuses a domain-specific
-encoder, a UNet or UNETR module and the STN's shape modules with
-``NotImplementedError``. Their converters arrive with their models.
+so nothing is skipped on either side. UNETR modules are refused with
+``NotImplementedError``: their model is not ported yet.
 """
 
 from __future__ import annotations
@@ -32,8 +38,10 @@ from typing import Dict, List, Mapping, Tuple
 
 import torch
 
+from maxstyle_tpu_torch.models.unet import UNETR_ITEM
+
 StateDict = Dict[str, torch.Tensor]
-NOT_PORTED = "ROADMAP Queue 1 item 7 (the rest of the network_type grammar)"
+NOT_PORTED = UNETR_ITEM
 
 
 def _not_ported(what: str) -> NotImplementedError:
@@ -53,6 +61,9 @@ class _Reader:
     def __getitem__(self, key: str) -> torch.Tensor:
         self.used.add(key)
         return self.sd[key]
+
+    def keys(self):
+        return self.sd.keys()
 
     def unread(self) -> List[str]:
         return sorted(k for k in self.sd
@@ -128,14 +139,124 @@ def convert_code_decoupler(sd: Mapping, prefix: str = "code_decoupler") -> State
     return _conv_norm_pair(sd, prefix)
 
 
+def _ds_bn(sd: Mapping, name: str, num_domains: int) -> StateDict:
+    """DomainSpecificBatchNorm2d (custom_layers.py:69-104): children
+    ``bns.{d}`` -> ``layers.DomainSpecificNorm2d``'s ``bn_domain{d}``."""
+    out: StateDict = {}
+    for d in range(num_domains):
+        out.update(_under(f"bn_domain{d}", _bn(sd, f"{name}.bns.{d}")))
+    return out
+
+
+def _sn_conv(sd: Mapping, name: str) -> StateDict:
+    """A spectral_norm'd conv: weight_orig and the power iteration's
+    weight_u / weight_v -> ``layers.TorchSNConv3x3``'s weight, u and v."""
+    out = {"weight": sd[f"{name}.weight_orig"], "u": sd[f"{name}.weight_u"],
+           "v": sd[f"{name}.weight_v"]}
+    if f"{name}.bias" in sd:
+        out["bias"] = sd[f"{name}.bias"]
+    return out
+
+
+def convert_ds_res_down(sd: Mapping, prefix: str, num_domains: int) -> StateDict:
+    """ds_res_convdown (encoder_decoder.py:360-420): children down, conv_1
+    (spectral-normed in both of the reference's branches), norm_1, conv_2,
+    norm_2, conv_input -> ``layers.ResConvDown`` with domain-specific norms."""
+    return {**_under("down", _conv(sd, f"{prefix}.down")),
+            **_under("conv1", _sn_conv(sd, f"{prefix}.conv_1")),
+            **_under("norm1", _ds_bn(sd, f"{prefix}.norm_1", num_domains)),
+            **_under("conv2", _conv(sd, f"{prefix}.conv_2")),
+            **_under("norm2", _ds_bn(sd, f"{prefix}.norm_2", num_domains)),
+            **_under("conv_input", _conv(sd, f"{prefix}.conv_input"))}
+
+
+def convert_ds_encoder(sd: Mapping, prefix: str, num_domains: int) -> StateDict:
+    """DomainSpecificEncoder (encoder_decoder.py:485-558) -> ``Encoder`` with
+    ``num_domains`` > 1: stem convs inc_conv_1/2 with norm_1/2, a bare
+    final_conv and a domain-specific final_norm."""
+    pre = f"{prefix}." if prefix else ""
+    out = {**_under("inc.conv1", _conv(sd, f"{pre}inc_conv_1")),
+           **_under("inc.norm1", _ds_bn(sd, f"{pre}norm_1", num_domains)),
+           **_under("inc.conv2", _conv(sd, f"{pre}inc_conv_2")),
+           **_under("inc.norm2", _ds_bn(sd, f"{pre}norm_2", num_domains))}
+    for i in range(1, 5):
+        out.update(_under(f"down{i}", convert_ds_res_down(sd, f"{pre}down{i}", num_domains)))
+    out.update(_under("final_conv", _conv(sd, f"{pre}final_conv")))
+    out.update(_under("final_norm", _ds_bn(sd, f"{pre}final_norm", num_domains)))
+    return out
+
+
 def convert_dual_branch_encoder(sd: Mapping) -> StateDict:
     """Dual_Branch_Encoder (encoder_decoder.py:634-680) -> ``DualBranchEncoder``.
     A domain-specific general encoder (DS_FCN) is recognised by its child
-    naming and refused."""
+    naming, and its domain count by its ``bns.{d}`` keys."""
     if "general_encoder.inc_conv_1.weight" in sd:
-        raise _not_ported("a domain-specific encoder (DS_FCN)")
-    return {**_under("general_encoder", convert_encoder(sd, "general_encoder")),
+        nd = 1 + max(int(k.split(".bns.")[1].split(".")[0]) for k in sd.keys() if ".bns." in k)
+        encoder = convert_ds_encoder(sd, "general_encoder", nd)
+    else:
+        encoder = convert_encoder(sd, "general_encoder")
+    return {**_under("general_encoder", encoder),
             **_under("code_decoupler", convert_code_decoupler(sd))}
+
+
+def convert_unet_encoder(sd: Mapping) -> StateDict:
+    """segmentation_models.UnetEncoder (unet.py:15-63): double convs
+    inc.conv.conv and down{i}.mpconv.1.conv, and the optional per-level
+    code_filter_{i}.code_decoupler -> ``UnetEncoder`` (``code_filters_{i-1}``)."""
+    out = _under("inc", _conv_norm_pair(sd, "inc.conv.conv"))
+    for i in range(1, 5):
+        out.update(_under(f"down{i}.conv", _conv_norm_pair(sd, f"down{i}.mpconv.1.conv")))
+    if "code_filter_1.code_decoupler.0.weight" in sd:
+        for i in range(1, 6):
+            out.update(_under(f"code_filters_{i - 1}",
+                              _conv_norm_pair(sd, f"code_filter_{i}.code_decoupler")))
+    return out
+
+
+def convert_unet_decoder(sd: Mapping) -> StateDict:
+    """segmentation_models.UnetDecoder (unet.py:65-136): double convs
+    up{i}.conv.conv, the Conv2 ups up{i}.up (a ConvTranspose2d, taps as
+    they are), outc.conv -> ``UnetDecoder``."""
+    out: StateDict = {}
+    for i in range(1, 5):
+        if f"up{i}.up.weight" in sd:
+            out.update(_under(f"up{i}.up", _conv(sd, f"up{i}.up")))
+        out.update(_under(f"up{i}.conv", _conv_norm_pair(sd, f"up{i}.conv.conv")))
+    out.update(_under("outc", _conv(sd, "outc.conv")))
+    return out
+
+
+# the reference FCN's conv2DBatchNormRelu units in the port's ConvBNRelu_{i}
+# order (flax's construction order: conv1_2 is built before conv1_1)
+FCN_UNITS = ("conv1_2", "conv1_1", "conv2_1", "conv2_2", "conv3_1", "conv3_2", "conv3_3",
+             "conv4_1", "conv4_2", "conv4_3", "conv5_1", "conv5_2", "conv5_3",
+             "level_1_out", "level_2_out", "level_3_out", "level_4_out", "level_5_out",
+             "aggregate_layers", "conv_final")
+
+
+def _convert_fcn(sd: Mapping) -> StateDict:
+    out: StateDict = {}
+    for i, name in enumerate(FCN_UNITS):
+        out.update(_under(f"ConvBNRelu_{i}.Conv_0", _conv(sd, f"{name}.cbr_unit.0")))
+        out.update(_under(f"ConvBNRelu_{i}.Norm2d_0", _bn(sd, f"{name}.cbr_unit.1")))
+    out.update(_under("outS", _conv(sd, "outS")))
+    return out
+
+
+def _strict(convert, sd: Mapping[str, torch.Tensor], what: str) -> StateDict:
+    """``convert(sd)``, refusing a key of ``sd`` that it did not read."""
+    reader = _Reader(sd)
+    out = convert(reader)
+    unread = reader.unread()
+    if unread:
+        raise ValueError(f"{what}: the reference keys {unread} have no counterpart")
+    return out
+
+
+def convert_fcn(sd: Mapping[str, torch.Tensor]) -> StateDict:
+    """The baseline zoo's Bai-style FCN (segmentation_models/fcn.py:13-113;
+    'FCN_16'/'FCN_64' of ``basic_solver.build_network``) -> ``baselines.FCN``."""
+    return _strict(_convert_fcn, sd, "FCN")
 
 
 def load_torch_state_dict(path: str) -> StateDict:
@@ -157,22 +278,27 @@ def load_torch_state_dict(path: str) -> StateDict:
 
 def convert_module_state_dict(sd: Mapping[str, torch.Tensor], module_name: str,
                               spec=None) -> StateDict:
-    """One module's reference state dict -> the port module's state dict."""
-    if spec is not None and getattr(spec, "is_unet", False):
-        raise _not_ported(f"the UNet/UNETR module {module_name!r}")
-    if module_name in ("shape_encoder", "shape_decoder"):
-        raise _not_ported(f"the STN's {module_name}")
-    reader = _Reader(sd)
+    """One module's reference state dict -> the port module's state dict,
+    by the module's name and the network's spec (a Unet's encoder and
+    decoders, and the image decoder of ``Unet_im_recon`` types, are the
+    UNet's; UNETR is refused)."""
+    is_unet = spec is not None and getattr(spec, "is_unet", False)
+    if spec is not None and getattr(spec, "is_transformer", False):
+        raise _not_ported(f"the UNETR module {module_name!r}")
     if module_name == "image_encoder":
-        out = convert_dual_branch_encoder(reader)
-    elif module_name in ("image_decoder", "segmentation_decoder"):
-        out = convert_decoder(reader)
+        convert = convert_unet_encoder if is_unet else convert_dual_branch_encoder
+    elif module_name == "segmentation_decoder":
+        convert = convert_unet_decoder if is_unet else convert_decoder
+    elif module_name == "image_decoder":
+        unet_recon = is_unet and "Unet_im_recon" in getattr(spec, "network_type", "")
+        convert = convert_unet_decoder if unet_recon else convert_decoder
+    elif module_name == "shape_encoder":
+        convert = convert_encoder
+    elif module_name == "shape_decoder":
+        convert = convert_decoder
     else:
         raise ValueError(module_name)
-    unread = reader.unread()
-    if unread:
-        raise ValueError(f"{module_name}: the reference keys {unread} have no counterpart")
-    return out
+    return _strict(convert, sd, module_name)
 
 
 def import_module_checkpoint(path: str, module_name: str, spec=None) -> StateDict:

@@ -14,8 +14,13 @@ each with ``num_batches_tracked`` buffers. Checked:
   same imported weights, at test_torch_port_model's tolerances (rtol 1e-4,
   atol 5e-5 on O(1) values, here scaled to each output's largest value);
 * ``import_snapshot``, the dropped ``num_batches_tracked``, a key with no
-  counterpart, a pickled module, and the converters of unported models
-  raising with ROADMAP item 7;
+  counterpart, a pickled module, and UNETR, the one model left without a
+  converter, raising with ROADMAP item 7.1;
+* every other family's converter (DS_FCN's encoder with its spectral-norm
+  vectors, the STN's shape encoder and decoder, the Unet encoders with and
+  without code filters and decoders with bilinear and Conv2 ups, the
+  baseline FCN): bit for bit as the JAX import followed by ``convert.py``,
+  holding exactly the file's tensors, loaded strictly;
 * the training CLI's ``--torch_ckpt_dir``: the weights before its first
   step are the files' tensors.
 """
@@ -191,16 +196,178 @@ def test_batch_counts_are_dropped_and_other_strays_refused(files, tmp_path):
 
 
 def test_unported_models_raise_naming_roadmap_item_7(files):
-    ds = {"general_encoder.inc_conv_1.weight": torch.zeros(1)}
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
-        tti.convert_module_state_dict(ds, "image_encoder")
-    for network_type in ("Unet_16", "UnetTransformer_16"):
-        spec = parse_network_type(network_type)
-        with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
-            tti.convert_module_state_dict(files["image_encoder"], "image_encoder", spec)
-    for name in ("shape_encoder", "shape_decoder"):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
-            tti.convert_module_state_dict(files["segmentation_decoder"], name)
+    """UNETR is the one model left without a converter; its refusal names
+    ROADMAP Queue 1 item 7.1."""
+    spec = parse_network_type("UnetTransformer_enable_code_filter_16")
+    for name in ("image_encoder", "segmentation_decoder"):
+        with pytest.raises(NotImplementedError, match="Queue 1 item 7.1"):
+            tti.convert_module_state_dict(files["image_encoder"], name, spec)
+
+
+def make_ds_encoder_sd(rng, r=R, in_ch=1, out_ch=128, nd=2):
+    """A Dual_Branch_Encoder with a DomainSpecificEncoder in the reference's
+    naming: inc_conv_1/2 and norm_1/2 (bns.{d}), down{i} with down, a
+    spectral_norm'd conv_1 (weight_orig, weight_u, weight_v), norm_1,
+    conv_2, norm_2, conv_input; a bare final_conv and final_norm."""
+    sd = {}
+    p = "general_encoder"
+    chans = [64 // r, 128 // r, 256 // r, 512 // r, 512 // r]
+
+    def ds_bn(name, c):
+        for d in range(nd):
+            bn_entries(rng, sd, f"{name}.bns.{d}", c)
+
+    conv_entries(rng, sd, f"{p}.inc_conv_1", in_ch, chans[0], 3)
+    ds_bn(f"{p}.norm_1", chans[0])
+    conv_entries(rng, sd, f"{p}.inc_conv_2", chans[0], chans[0], 3)
+    ds_bn(f"{p}.norm_2", chans[0])
+    cin = chans[0]
+    for i, cout in enumerate(chans[1:], start=1):
+        q = f"{p}.down{i}"
+        conv_entries(rng, sd, f"{q}.down", cin, cin, 3)
+        sd[f"{q}.conv_1.weight_orig"] = torch.from_numpy(
+            rng.randn(cout, cin, 3, 3).astype(np.float32) * 0.1)
+        sd[f"{q}.conv_1.bias"] = torch.from_numpy(rng.randn(cout).astype(np.float32) * 0.1)
+        u, v = rng.randn(cout).astype(np.float32), rng.randn(cin * 9).astype(np.float32)
+        sd[f"{q}.conv_1.weight_u"] = torch.from_numpy(u / np.linalg.norm(u))
+        sd[f"{q}.conv_1.weight_v"] = torch.from_numpy(v / np.linalg.norm(v))
+        ds_bn(f"{q}.norm_1", cout)
+        conv_entries(rng, sd, f"{q}.conv_2", cout, cout, 3)
+        ds_bn(f"{q}.norm_2", cout)
+        conv_entries(rng, sd, f"{q}.conv_input", cin, cout, 1)
+        cin = cout
+    conv_entries(rng, sd, f"{p}.final_conv", cin, out_ch, 1)
+    ds_bn(f"{p}.final_norm", out_ch)
+    for i in (0, 3):
+        conv_entries(rng, sd, f"code_decoupler.{i}", out_ch, out_ch, 3, bias=False)
+        bn_entries(rng, sd, f"code_decoupler.{i + 1}", out_ch)
+    return sd
+
+
+def _double_conv(rng, sd, prefix, cin, cout):
+    conv_entries(rng, sd, f"{prefix}.0", cin, cout, 3)
+    bn_entries(rng, sd, f"{prefix}.1", cout)
+    conv_entries(rng, sd, f"{prefix}.3", cout, cout, 3)
+    bn_entries(rng, sd, f"{prefix}.4", cout)
+
+
+def make_unet_encoder_sd(rng, r=R, code_filter=False):
+    """segmentation_models.UnetEncoder in the reference's naming."""
+    sd = {}
+    chans = [64 // r, 128 // r, 256 // r, 512 // r, 512 // r]
+    _double_conv(rng, sd, "inc.conv.conv", 1, chans[0])
+    for i in range(1, 5):
+        _double_conv(rng, sd, f"down{i}.mpconv.1.conv", chans[i - 1], chans[i])
+    if code_filter:
+        for i, c in enumerate(chans, start=1):
+            for j in (0, 3):
+                conv_entries(rng, sd, f"code_filter_{i}.code_decoupler.{j}", c, c, 3, bias=False)
+                bn_entries(rng, sd, f"code_filter_{i}.code_decoupler.{j + 1}", c)
+    return sd
+
+
+def make_unet_decoder_sd(rng, out_ch, conv2, r=R):
+    """segmentation_models.UnetDecoder in the reference's naming (up{i}.up
+    ConvTranspose2d taps (in, out, 2, 2) for Conv2 ups)."""
+    sd = {}
+    outs = [256 // r, 128 // r, 64 // r, 64 // r]
+    below = [512 // r] + outs[:3]
+    skips = [512 // r, 256 // r, 128 // r, 64 // r]
+    for i in range(4):
+        if conv2:
+            sd[f"up{i + 1}.up.weight"] = torch.from_numpy(
+                rng.randn(below[i], below[i], 2, 2).astype(np.float32) * 0.1)
+            sd[f"up{i + 1}.up.bias"] = torch.from_numpy(rng.randn(below[i]).astype(np.float32))
+        _double_conv(rng, sd, f"up{i + 1}.conv.conv", skips[i] + below[i], outs[i])
+    conv_entries(rng, sd, "outc.conv", outs[3], out_ch, 1)
+    return sd
+
+
+def make_fcn_sd(rng, fs=R, num_classes=4):
+    """The reference's Bai-style FCN (segmentation_models/fcn.py)."""
+    from maxstyle_tpu_torch.models.baselines import _fcn_units
+    f = [64 // fs, 128 // fs, 256 // fs, 512 // fs, 512 // fs]
+    sd = {}
+    for name, (cin, cout, _, k) in zip(tti.FCN_UNITS, _fcn_units(1, f)):
+        conv_entries(rng, sd, f"{name}.cbr_unit.0", cin, cout, k)
+        bn_entries(rng, sd, f"{name}.cbr_unit.1", cout)
+    conv_entries(rng, sd, "outS", 64, num_classes, 1)
+    return sd
+
+
+def _tensors_of(sd):
+    """The file's tensors, num_batches_tracked dropped, as sorted byte strings."""
+    return sorted(v.numpy().tobytes() for k, v in sd.items()
+                  if not k.endswith("num_batches_tracked"))
+
+
+def family_files(seed=0):
+    """(network_type, module name, reference state dict) of every new
+    converter: DS_FCN's encoder, the STN's shape encoder (w_image: 4 + 1
+    input channels) and decoder, the Unet encoders and decoders."""
+    rng = np.random.RandomState(seed)
+    shape_encoder = {k[len("general_encoder."):]: v for k, v in
+                     make_encoder_sd(rng, in_ch=5).items() if k.startswith("general_encoder.")}
+    return [
+        ("DS_FCN_16_standard", "image_encoder", with_batch_counts(make_ds_encoder_sd(rng))),
+        ("FCN_16_standard_w_image", "shape_encoder", with_batch_counts(shape_encoder)),
+        ("FCN_16_standard_w_image", "shape_decoder",
+         with_batch_counts(make_decoder_sd(rng, "NN", 4))),
+        ("Unet_16_standard_no_STN", "image_encoder", make_unet_encoder_sd(rng)),
+        ("Unet_16_standard_enable_code_filter_no_STN", "image_encoder",
+         make_unet_encoder_sd(rng, code_filter=True)),
+        ("Unet_16_standard_no_STN", "segmentation_decoder",
+         make_unet_decoder_sd(rng, 4, conv2=False)),
+        ("Unet_16_Unet_im_recon_no_STN", "image_decoder", make_unet_decoder_sd(rng, 1, conv2=True)),
+        ("Unet_16_standard_no_STN", "image_decoder", make_decoder_sd(rng, "Conv2", 1)),
+    ]
+
+
+@pytest.mark.parametrize("case", range(8))
+def test_every_family_imports_bit_for_bit_as_the_jax_package_does(case):
+    """DS, STN and Unet modules: the port's import equals convert.py of the
+    JAX import bit for bit, holds exactly the file's tensors (transposed
+    convs unflipped), loads strictly into the port's module, and refuses a
+    stray key."""
+    network_type, name, sd = family_files()[case]
+    spec = parse_network_type(network_type)
+    ours = tti.convert_module_state_dict(sd, name, spec)
+    p, st = jti.convert_module_state_dict({k: v.numpy() for k, v in sd.items()}, name, spec)
+    theirs = convert.flax_to_state_dict(p, st)
+    assert set(ours) == set(theirs)
+    assert all(torch.equal(ours[k], theirs[k]) for k in ours)
+    assert _tensors_of(ours) == _tensors_of(sd)
+    cfg = tconfig.ExperimentConfig.from_dict({"segmentation_model": {
+        "network_type": network_type, "num_classes": 4}})
+    TSolver(cfg, device="cpu").build_modules()[name].load_state_dict(ours, strict=True)
+    if name == "image_decoder":  # Conv2 ups: the file's taps, unflipped
+        key = "up1.up.weight" if "Unet_im_recon" in network_type else "up1.up.conv.weight"
+        assert torch.equal(ours[key], sd["up1.up.weight"])
+    with pytest.raises(ValueError, match="no counterpart"):
+        tti.convert_module_state_dict({**sd, "stray.weight": torch.zeros(1)}, name, spec)
+
+
+def test_ds_encoder_imports_its_power_iteration_vectors():
+    sd = make_ds_encoder_sd(np.random.RandomState(4))
+    ours = tti.convert_module_state_dict(sd, "image_encoder")
+    q = "general_encoder.down2.conv1"
+    assert torch.equal(ours[f"{q}.weight"], sd["general_encoder.down2.conv_1.weight_orig"])
+    assert torch.equal(ours[f"{q}.u"], sd["general_encoder.down2.conv_1.weight_u"])
+    assert torch.equal(ours[f"{q}.v"], sd["general_encoder.down2.conv_1.weight_v"])
+    assert torch.equal(ours["general_encoder.final_norm.bn_domain1.running_var"],
+                       sd["general_encoder.final_norm.bns.1.running_var"])
+
+
+def test_fcn_baseline_imports_as_the_jax_package_does():
+    from maxstyle_tpu_torch.basic_solver import build_network
+    sd = with_batch_counts(make_fcn_sd(np.random.RandomState(5)))
+    ours = tti.convert_fcn(sd)
+    theirs = convert.flax_to_state_dict(*jti.convert_fcn({k: v.numpy() for k, v in sd.items()}))
+    assert set(ours) == set(theirs) and all(torch.equal(ours[k], theirs[k]) for k in ours)
+    assert _tensors_of(ours) == _tensors_of(sd)
+    build_network("FCN_16", 4).load_state_dict(ours, strict=True)
+    with pytest.raises(ValueError, match="no counterpart"):
+        tti.convert_fcn({**sd, "conv6.cbr_unit.0.weight": torch.zeros(1)})
 
 
 def test_train_cli_starts_from_the_imported_weights(tmp_path, monkeypatch):

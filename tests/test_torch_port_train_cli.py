@@ -154,20 +154,35 @@ def test_infer_cli(tmp_path):
                                            (infer, "--torch_ckpt_dir", 7),
                                            (infer, "--data_parallel", 8)])
 def test_unported_flags_raise_and_name_their_roadmap_item(tmp_path, cli, flag, item):
-    """--data_parallel raises; --torch_ckpt_dir imports, and raises for a
-    model the port does not have yet (here a domain-specific encoder)."""
+    """--data_parallel raises; --torch_ckpt_dir imports (here a
+    domain-specific encoder into a DS_FCN run), and raises for the model the
+    port does not have yet, UNETR (ROADMAP item 7.1)."""
     args = {train: ["--json_config_path", str(tmp_path / "none.json")],
             infer: ["--input_dir", str(tmp_path), "--out_dir", str(tmp_path / "o")]}[cli]
     if flag == "--torch_ckpt_dir":
+        from tests.test_torch_port_torch_import import make_ds_encoder_sd
         ref = tmp_path / "ref"
         ref.mkdir()
-        torch.save({"general_encoder.inc_conv_1.weight": torch.zeros(1)},
-                   str(ref / "image_encoder.pth"))
+        torch.save(make_ds_encoder_sd(np.random.RandomState(0)), str(ref / "image_encoder.pth"))
         config = write_config(tmp_path, str(tmp_path / "site"))
-        args = {train: ["--json_config_path", config, "--save_dir", str(tmp_path / "s"),
-                        "--no_train"],
-                infer: args + ["--json_config_path", config]}[cli] + [flag, str(ref)]
-    else:
-        args += [flag]
+
+        def run(network_type):
+            with open(config) as f:
+                cfg = json.load(f)
+            cfg["segmentation_model"]["network_type"] = network_type
+            with open(config, "w") as f:
+                json.dump(cfg, f)
+            empty = tmp_path / "empty"
+            empty.mkdir(exist_ok=True)
+            cli.main({train: ["--json_config_path", config, "--save_dir", str(tmp_path / "s"),
+                              "--no_train"],
+                      infer: ["--input_dir", str(empty), "--out_dir", str(tmp_path / "o"),
+                              "--json_config_path", config]}[cli]
+                     + [flag, str(ref), "--device", "cpu"])
+
+        run("DS_FCN_16_standard")
+        with pytest.raises(NotImplementedError, match=f"Queue 1 item {item}.1"):
+            run("UnetTransformer_enable_code_filter_16")
+        return
     with pytest.raises(NotImplementedError, match=f"Queue 1 item {item}"):
-        cli.main(args + ["--device", "cpu"])
+        cli.main(args + [flag, "--device", "cpu"])

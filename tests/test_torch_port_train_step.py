@@ -23,7 +23,8 @@ Compared, with these tolerances:
   of a few terms near the rounding floor: 1.6% of the encoder's weights
   step the other way (cosine 0.967, measured). A composition or optimizer
   fault would decorrelate the whole update instead;
-* the BatchNorm running statistics: rtol 1e-4 / atol 5e-5.
+* the BatchNorm running statistics (and a spectral-norm conv's power
+  iteration vectors u and v): rtol 1e-4 / atol 5e-5.
 """
 
 import dataclasses
@@ -114,13 +115,14 @@ def port_styles(values):
     return params, state
 
 
-def jax_step(cfg, step_key=3):
+def jax_step(cfg, step_key=3, init_cfg=None):
     """One JAX step of ``cfg`` on the test's batch, from its seed-0 weights,
     with the noisy input and the style draws pinned. The weights are those
-    of ``config()``: JAX's init runs the modules without a dropout rng, and
-    dropout holds no weights."""
+    of ``init_cfg``, by default ``config()``: JAX's init runs the modules
+    without a dropout rng, and dropout holds no weights."""
     solver = JSolver(cfg, maxstyle_backend="pallas")
-    state = JSolver(config(cfg.max_style.n_iter), maxstyle_backend="pallas").init_state(
+    init_cfg = init_cfg or config(cfg.max_style.n_iter)
+    state = JSolver(init_cfg, maxstyle_backend="pallas").init_state(
         jax.random.key(0), (CROP, CROP), batch_size=2 * HALF)
     params0, stats0 = to_np(state.params), to_np(state.batch_stats)
 
@@ -153,11 +155,11 @@ def jax_run():
     return jax_step(config())
 
 
-def assert_port_step_matches(r, extra_overrides=None, update_cosine=True):
+def assert_port_step_matches(r, extra_overrides=None, update_cosine=True, stats_rtol=1e-4):
     """The port's step on ``jax_step``'s batch and draws, from the same
     weights, against JAX's losses, weights and BatchNorm statistics at the
     tolerances of this module's docstring (the update cosines only with
-    ``update_cosine``)."""
+    ``update_cosine``; the statistics at ``stats_rtol``)."""
     ts = TSolver(tconfig.ExperimentConfig.from_dict(dataclasses.asdict(r["cfg"])),
                  device="cpu")
     state = ts.init_state(state_dicts=convert.convert_train_state(r["params0"], r["stats0"]))
@@ -182,9 +184,10 @@ def assert_port_step_matches(r, extra_overrides=None, update_cosine=True):
         ours, theirs = [], []
         for key, want in after[name].items():
             got = sd[key]
-            if key.endswith(("running_mean", "running_var")):
-                np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-4, atol=5e-5,
-                                           err_msg=f"{name}.{key}")
+            if key.endswith(("running_mean", "running_var", ".u", ".v")):
+                # BatchNorm statistics, and the spectral-norm conv's u and v
+                np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=stats_rtol,
+                                           atol=5e-5, err_msg=f"{name}.{key}")
                 continue
             diff = float((got - want).abs().max())
             assert diff <= 2.1 * LR + 1e-6, f"{name}.{key}: weight diff {diff:.2e}"
@@ -220,18 +223,38 @@ def test_multi_step_runs_end_to_end_on_cpu():
 
 def test_every_jax_branch_flag_and_shipped_config_builds_a_step():
     """make_train_step accepts each flag that the JAX package wires, alone
-    and all together, and builds the step of every shipped config."""
+    and all together, and builds the step of every shipped config. On the
+    STN family (FCN_16_standard, MaxStyle n_iter=1) each of those steps also
+    runs: finite losses, the branch's channel and the hard-example shape
+    channel non-zero where the branch feeds them."""
     from pathlib import Path
 
     from maxstyle_tpu.train_step_branches import SUPPORTED
 
+    channel = {"latent_DA": "loss/hard/total", "RSC": "loss/hard/RSC",
+               "mix_style": "loss/hard/mix_style", "DSU": "loss/hard/DSU",
+               "rand_conv": "loss/hard/rand_conv", "adv_noise": "loss/hard/adv_noise",
+               "adv_bias": "loss/hard/adv_bias"}
     cfg = config()
+    stn = dataclasses.replace(config(n_iter=1), segmentation_model=dataclasses.replace(
+        cfg.segmentation_model, network_type="FCN_16_standard"))
+    g = torch.Generator().manual_seed(0)
+    batch = {"image": torch.rand((2 * HALF, CROP, CROP, 1), generator=g),
+             "label": torch.randint(0, 4, (2 * HALF, CROP, CROP), generator=g)}
     for flags in [{f} for f in sorted(SUPPORTED)] + [set(SUPPORTED)]:
         c = dataclasses.replace(cfg, learning=dataclasses.replace(
             cfg.learning, **{f: True for f in flags}))
         ts = TSolver(tconfig.ExperimentConfig.from_dict(dataclasses.asdict(c)), device="cpu")
         assert all(getattr(ts.config.learning, f) is True for f in flags)
         assert callable(make_train_step(ts))
+        c = dataclasses.replace(stn, learning=dataclasses.replace(
+            stn.learning, **{f: True for f in flags}))
+        ts = TSolver(tconfig.ExperimentConfig.from_dict(dataclasses.asdict(c)), device="cpu")
+        state, m = make_train_step(ts)(ts.init_state(seed=0), batch, g)
+        assert all(np.isfinite(float(v)) for v in m.values()), flags
+        ran = flags - {"mix_style"} if "DSU" in flags else flags  # DSU replaces MixStyle
+        assert all(float(m[channel[f]]) != 0.0 for f in ran), flags
+        assert float(m["loss/hard/shape"]) > 0 and float(m["loss/standard/gt_shape"]) > 0
     shipped = sorted((Path(__file__).resolve().parents[1] / "configs").rglob("*.json"))
     assert len(shipped) == 16
     for path in shipped:
