@@ -105,18 +105,26 @@ Phases, each printing its own lines; any failure exits nonzero:
 14. slice_unet — the same config with Unet_16_Unet_im_recon_no_STN: the
              image decoder is a UnetDecoder over the skip pyramid, so
              MaxStyle's hooks 3, 4, 5 run in full decodes; exactly
-             21/21/15/1 launches a step. In each of phases 12-14 the image
-             decoder's hooks 3, 4, 5 see the headline's shapes (20x16@96^2,
-             20x16@192^2, 20x1@192^2), at which phase 3 held the kernels;
-15. basic_solver — the baseline SegmentationModel with UNet_16, FCN_16 and
+             21/21/15/1 launches a step;
+15. slice_unetr — the same config with UnetTransformer_16_no_STN: UNETR,
+             a ViT-B/16 (hidden 768, 12 layers, 12 heads, MLP 3072) over
+             the 192^2 crops with its five-level pyramid; the image decoder
+             is the FCN Decoder over the 768-channel bottom level. Exactly
+             21/21/15/1 launches a step, every ViT parameter tensor and
+             every pyramid BatchNorm statistic moved, a non-zero hard-example
+             loss, and the device launches a step (torch.profiler, one more
+             call). In each of phases 12-15 the image decoder's hooks 3, 4,
+             5 see the headline's shapes (20x16@96^2, 20x16@192^2,
+             20x1@192^2), at which phase 3 held the kernels;
+16. basic_solver — the baseline SegmentationModel with UNet_16, FCN_16 and
              ResUNet_16 (Adam 1e-4, EMA) at batch 20, 192^2, 4 classes, on
              synthetic slices made on the card: one warm-up step and 8 timed
              steps each; finite losses, every parameter tensor changed, no
              port kernel launched (the zoo runs none); steps/s.
 
-Phases 12-14 print steps/s and peak memory beside the card's name and
-power limit. The tree of phases 9-11 is written once under build/ and
-deleted at the end. Each of the phases from 5 on is a path: every launch count is set to 0 just
+The family phases 12-15 (four network families) print steps/s and peak
+memory beside the card's name and power limit. The tree of phases 9-11 is
+written once under build/ and deleted at the end. Each of the phases from 5 on is a path: every launch count is set to 0 just
 before it and read just after. Before the last line it prints one JSON object with
 every kernel's numbers; the last line is {"ok": true, "device": {...}}.
 Without a GPU, or without the package beside it, it exits nonzero and prints
@@ -171,7 +179,7 @@ REFERENCE_IMPORT_CHANGES = {"learning": {"n_epochs": 1}}
 # the network families' paths: flagship workloads, the headline config with
 # another network_type
 FAMILY_PATHS = {"slice_stn": "headline_stn", "slice_ds_fcn": "headline_ds_fcn",
-                "slice_unet": "headline_unet"}
+                "slice_unet": "headline_unet", "slice_unetr": "headline_unetr"}
 PER_STEP.update({path: PER_STEP["slice"] for path in FAMILY_PATHS})
 # the baseline zoo's path launches no port kernel
 PER_STEP["basic_solver"] = {}
@@ -950,6 +958,59 @@ def _check_unet(solver, state, last):
         fail("slice_unet: the hard-example loss is 0")
 
 
+def _device_launches_per_step(solver, state) -> float:
+    """Kernels the device ran a step, over one more call of K_INNER steps
+    under torch.profiler; NaN where the profiler saw no device kernel."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from maxstyle_tpu_torch.flagship import make_raw_batches, workload_policy
+    from maxstyle_tpu_torch.train_step import make_multi_step
+
+    cfg = solver.config
+    policy = workload_policy(cfg)
+    raw = make_raw_batches(K_INNER, cfg.train_batch_size, policy.pad_hw[0], 3, solver.device,
+                           num_classes=cfg.segmentation_model.num_classes)
+    multi = make_multi_step(solver, policy,
+                            keep_orig=cfg.data.keep_orig_image_label_pair_for_training,
+                            n_inner=K_INNER)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        multi(state, raw, torch.Generator(device="cuda").manual_seed(4))
+        torch.cuda.synchronize()
+    n = sum(e.count for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and not getattr(e, "is_user_annotation", False))
+    return n / K_INNER if n else float("nan")
+
+
+def _check_unetr(solver, state, last):
+    """The encoder is UNETR's; every ViT parameter tensor and every
+    BatchNorm running statistic of its pyramid moved from the initial state
+    (measure_throughput starts from seed 0); then the device launches a
+    step."""
+    import torch
+    from maxstyle_tpu_torch.models.unetr import UNETREncoder
+
+    enc = state.modules["image_encoder"]
+    if not isinstance(enc, UNETREncoder):
+        fail("slice_unetr: the image encoder is not a UNETREncoder")
+        return
+    if not last["loss/hard/total"] > 0:
+        fail("slice_unetr: the hard-example loss is 0")
+    init = solver.init_state(0).modules["image_encoder"].state_dict()
+    sd = enc.state_dict()
+    vit = [k for k in sd if k.startswith("vit.")]
+    stats = [k for k in sd if k.startswith("encoder") and ".running_" in k]
+    moved_vit = sum(not torch.equal(sd[k], init[k]) for k in vit)
+    moved_stats = sum(not torch.equal(sd[k], init[k]) for k in stats)
+    print(f"slice_unetr: ViT-B/16 {sum(sd[k].numel() for k in vit)} parameters in {len(vit)} "
+          f"tensors, {moved_vit} moved; pyramid BatchNorm statistics {moved_stats}/"
+          f"{len(stats)} moved")
+    if moved_vit != len(vit) or moved_stats != len(stats) or not stats:
+        fail("slice_unetr: a ViT parameter or a pyramid BatchNorm statistic did not move")
+    print(f"slice_unetr: device launches {_device_launches_per_step(solver, state):.1f}/step "
+          f"(torch.profiler, one call of {K_INNER} steps)")
+
+
 def _check_family(path, solver, state, last):
     """The MaxStyle hooks of the path's image decoder see the headline's
     shapes, at which the kernels phase checked and timed kernels 1-3; then
@@ -972,11 +1033,11 @@ def _check_family(path, solver, state, last):
     if shapes != STYLE_SHAPES["headline"]:
         fail(f"{path}: hook shapes {shapes}, not the headline's {STYLE_SHAPES['headline']}")
     {"slice_stn": _check_stn, "slice_ds_fcn": _check_ds,
-     "slice_unet": _check_unet}[path](solver, state, last)
+     "slice_unet": _check_unet, "slice_unetr": _check_unetr}[path](solver, state, last)
 
 
 def phase_families(smi: str):
-    """Phases 12-14: the STN, DS_FCN and Unet paths at full width."""
+    """Phases 12-15: the STN, DS_FCN, Unet and UNETR paths at full width."""
     from maxstyle_tpu_torch.flagship import WORKLOADS
 
     import functools
@@ -994,7 +1055,7 @@ def phase_families(smi: str):
 
 
 def phase_basic_solver(smi: str):
-    """Phase 15: the baseline SegmentationModel zoo at batch 20, 192^2."""
+    """Phase 16: the baseline SegmentationModel zoo at batch 20, 192^2."""
     import torch
     from maxstyle_tpu_torch import kernels
     from maxstyle_tpu_torch.basic_solver import SegmentationModel

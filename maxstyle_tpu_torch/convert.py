@@ -11,27 +11,41 @@ after the flax ones, so the mapping goes by path:
                                              flipped (flax's ConvTranspose
                                              correlates with the kernel that
                                              torch's flips)
+  Dense kernel          (in,out)          -> weight (out,in)
   BatchNorm             scale/bias + mean/var -> weight/bias +
                                              running_mean/running_var
+  LayerNorm             scale/bias        -> weight/bias
   spectral-norm conv    kernel/bias + u/v     -> weight/bias + buffers u/v
   self-attention gate   gamma                 -> gamma
+  ViT position embedding pos_embedding        -> pos_embedding (same layout)
   ``BatchNorm_0`` (the flax Norm2d child) is dropped from the path.
   ``ConvTranspose_0`` becomes ``conv`` inside an ``Upsampler`` (flax path
   ``.../up/ConvTranspose_0``: the FCN decoder's Conv2 and Conv4 blocks) and
   ``up`` elsewhere (the UNet's ``Up`` and ``ResConvUp``, where it sits
-  beside a ``conv`` or ``ResConv_0`` child). Domain-specific norms
-  (``bn_domain{d}``) and the UNet's ``code_filters_{i}`` keep their names.
+  beside a ``conv`` or ``ResConv_0`` child, and UNETR's ``UpCatBlock``);
+  UNETR's ``ResConvBlock_0`` becomes ``conv``. Domain-specific norms
+  (``bn_domain{d}``) and the code filters ``code_filters_{i}`` keep their
+  names.
+
+A 4-D kernel is a transposed conv when its flax module is ``up{i}`` (the
+transposed convs of UNETR's ``PrUpBlock``; the ``up{i}`` of the other
+families are parents of modules and hold no kernel) or ``ConvTranspose_{n}``.
+Float64 leaves stay float64 (a gradient check's reference run); every other
+leaf becomes float32.
 """
 
 from __future__ import annotations
 
+import re
 from typing import Dict, Iterator, Mapping, Tuple
 
 import numpy as np
 import torch
 
 _LEAF = {"bias": "bias", "scale": "weight", "gamma": "gamma", "mean": "running_mean",
-         "var": "running_var", "u": "u", "v": "v"}
+         "var": "running_var", "u": "u", "v": "v", "pos_embedding": "pos_embedding"}
+_RENAME = {"ResConvBlock_0": "conv"}
+_TRANSPOSED = re.compile(r"up\d+|ConvTranspose_\d+")
 
 
 def _walk(tree: Mapping, path: Tuple[str, ...] = ()) -> Iterator[Tuple[Tuple[str, ...], np.ndarray]]:
@@ -39,7 +53,8 @@ def _walk(tree: Mapping, path: Tuple[str, ...] = ()) -> Iterator[Tuple[Tuple[str
         if isinstance(value, Mapping):
             yield from _walk(value, path + (str(key),))
         else:
-            yield path + (str(key),), np.asarray(value, dtype=np.float32)
+            a = np.asarray(value)
+            yield path + (str(key),), a if a.dtype == np.float64 else a.astype(np.float32)
 
 
 def _torch_name(path: Tuple[str, ...]) -> str:
@@ -48,8 +63,18 @@ def _torch_name(path: Tuple[str, ...]) -> str:
         if s == "ConvTranspose_0":
             s = "conv" if i > 0 and path[i - 1] == "up" else "up"
         if s != "BatchNorm_0":
-            segs.append(s)
+            segs.append(_RENAME.get(s, s))
     return ".".join(segs + [_LEAF.get(path[-1], "weight")])
+
+
+def _kernel(path: Tuple[str, ...], a: np.ndarray) -> np.ndarray:
+    if a.ndim == 2:  # Dense
+        return a.T
+    if a.ndim != 4:
+        raise ValueError(f"{'/'.join(path)}: expected a 2-D Dense or a 4-D conv kernel")
+    if len(path) > 1 and _TRANSPOSED.fullmatch(path[-2]):
+        return a[::-1, ::-1].transpose(2, 3, 0, 1)
+    return a.transpose(3, 2, 0, 1)
 
 
 def flax_to_state_dict(params: Mapping, batch_stats: Mapping | None = None
@@ -58,13 +83,8 @@ def flax_to_state_dict(params: Mapping, batch_stats: Mapping | None = None
     out: Dict[str, torch.Tensor] = {}
     for path, a in _walk(params):
         if path[-1] == "kernel":
-            if a.ndim != 4:
-                raise ValueError(f"{'/'.join(path)}: expected a 4-D conv kernel")
-            if "ConvTranspose_0" in path:
-                a = a[::-1, ::-1].transpose(2, 3, 0, 1)
-            else:
-                a = a.transpose(3, 2, 0, 1)
-        elif path[-1] not in ("bias", "scale", "gamma"):
+            a = _kernel(path, a)
+        elif path[-1] not in ("bias", "scale", "gamma", "pos_embedding"):
             raise ValueError(f"unexpected flax parameter {'/'.join(path)}")
         out[_torch_name(path)] = torch.from_numpy(np.ascontiguousarray(a))
     for path, a in _walk(batch_stats or {}):

@@ -25,7 +25,9 @@ Counterpart of ``__graft_entry__._flagship_solver`` and
   file (configs/ACDC/1500_epoch/MICCAI2022_MaxStyle.json, its widths and
   MaxStyle loop) with another network_type: ``headline_stn``
   (FCN_16_standard), ``headline_ds_fcn`` (DS_FCN_16_standard),
-  ``headline_unet`` (Unet_16_Unet_im_recon_no_STN).
+  ``headline_unet`` (Unet_16_Unet_im_recon_no_STN), ``headline_unetr``
+  (UnetTransformer_16_no_STN: a ViT-B/16 at hidden 768, 12 layers, over the
+  192^2 crops).
 * :func:`measure_throughput` times ``make_multi_step`` on synthetic raw
   slices, with the policy, sizes and class count of the solver's config;
   ``python3 -m maxstyle_tpu_torch.flagship --workload <name>`` prints its
@@ -177,7 +179,8 @@ def family_solver(network_type: str, device=None) -> TripletSegmentationSolver:
 
 # the network families on the headline's config
 FAMILIES = {"headline_stn": "FCN_16_standard", "headline_ds_fcn": "DS_FCN_16_standard",
-            "headline_unet": "Unet_16_Unet_im_recon_no_STN"}
+            "headline_unet": "Unet_16_Unet_im_recon_no_STN",
+            "headline_unetr": "UnetTransformer_16_no_STN"}
 # the method-branch configs and the standard training they are compared with
 BRANCH_CONFIGS = {
     "prostate_standard": CONFIGS / "Prostate" / "standard_training.json",

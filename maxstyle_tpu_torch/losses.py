@@ -29,8 +29,8 @@ def _sobel_kernels(device: torch.device) -> torch.Tensor:
 
 
 def one_hot(labels: torch.Tensor, num_classes: int) -> torch.Tensor:
-    """[N,H,W] int -> [N,C,H,W] float one-hot."""
-    return F.one_hot(labels.long(), num_classes).permute(0, 3, 1, 2).float()
+    """[N,H,W] int -> [N,C,H,W] one-hot in the default float dtype."""
+    return F.one_hot(labels.long(), num_classes).permute(0, 3, 1, 2).to(torch.get_default_dtype())
 
 
 def _normalized_class_weights(weight: Sequence[float], num_classes: int,

@@ -263,8 +263,10 @@ def upsample2x(x: torch.Tensor, method: str = "NN") -> torch.Tensor:
     raise ValueError(method)
 
 
-def transposed_conv(features: int, kernel: int, padding: int) -> nn.ConvTranspose2d:
-    conv = nn.ConvTranspose2d(features, features, kernel, stride=2, padding=padding)
+def transposed_conv(features: int, kernel: int, padding: int,
+                    in_features: Optional[int] = None) -> nn.ConvTranspose2d:
+    conv = nn.ConvTranspose2d(in_features or features, features, kernel, stride=2,
+                              padding=padding)
     with torch.no_grad():
         conv.weight.normal_(0.0, 0.02)
         conv.bias.zero_()
@@ -325,32 +327,48 @@ class FixableDropout(nn.Module):
 
     def keep_mask(self, n: int, c: int, device: torch.device) -> torch.Tensor:
         """The step's [n,c,1,1] boolean keep-mask on ``device``."""
-        key = (n, c, device)
+        return self._step_mask((n, c, 1, 1), device)
+
+    def _step_mask(self, shape: Tuple[int, ...], device: torch.device) -> torch.Tensor:
+        key = (shape, device)
         if key not in self._masks and self._given is not None:
-            if tuple(self._given.shape) != (n, c, 1, 1):
-                raise ValueError(f"FixableDropout {self.name!r}: given mask of shape "
-                                 f"{tuple(self._given.shape)}, expected {(n, c, 1, 1)}")
+            if tuple(self._given.shape) != shape:
+                raise ValueError(f"{type(self).__name__} {self.name!r}: given mask of shape "
+                                 f"{tuple(self._given.shape)}, expected {shape}")
             self._masks[key] = self._given.to(device=device, dtype=torch.bool)
         if key not in self._masks:
             if self._seed is None:
-                raise RuntimeError(f"FixableDropout {self.name!r}: train and frozen modes "
-                                   "need a step's seed (dropout_step)")
+                raise RuntimeError(f"{type(self).__name__} {self.name!r}: train and frozen "
+                                   "modes need a step's seed (dropout_step)")
             gen = torch.Generator(device=device)
             gen.manual_seed((self._seed + 1_000_003 * zlib.crc32(self.name.encode()))
                             % 2 ** 63)
-            self._masks[key] = torch.rand((n, c, 1, 1), generator=gen,
-                                          device=device) < 1.0 - self.rate
+            self._masks[key] = torch.rand(shape, generator=gen, device=device) < 1.0 - self.rate
         return self._masks[key]
+
+
+class ElementDropout(FixableDropout):
+    """Element-wise dropout (flax's ``nn.Dropout``) under
+    :class:`FixableDropout`'s step protocol: one keep-mask of the input's
+    whole shape a layer a step, drawn from the step's seed and the layer's
+    name or injected by :func:`dropout_step`, replayed in every pass of the
+    step; on in "train" and "frozen", off in "eval"."""
+
+    def forward(self, x: torch.Tensor, mode: str) -> torch.Tensor:
+        if self.rate == 0.0 or mode == "eval":
+            return x
+        keep = self._step_mask(tuple(x.shape), x.device)
+        return torch.where(keep, x / (1.0 - self.rate), torch.zeros_like(x))
 
 
 @contextlib.contextmanager
 def dropout_step(nets: nn.Module, seed: Optional[int],
                  masks: Optional[Dict[str, torch.Tensor]] = None):
     """One training step's dropout: inside, every FixableDropout of ``nets``
-    takes its qualified module name, draws its mask from ``seed`` once, or
-    takes ``masks[name]`` (a boolean [N,C,1,1] keep-mask, to inject a
-    reference's masks), and applies it in every pass; on exit the masks are
-    dropped."""
+    (and every ElementDropout) takes its qualified module name, draws its
+    mask from ``seed`` once, or takes ``masks[name]`` (a boolean keep-mask,
+    [N,C,1,1] or the input's shape, to inject a reference's masks), and
+    applies it in every pass; on exit the masks are dropped."""
     layers = [(name, m) for name, m in nets.named_modules() if isinstance(m, FixableDropout)]
     for name, m in layers:
         m.name, m._seed, m._given, m._masks = name, seed, (masks or {}).get(name), {}

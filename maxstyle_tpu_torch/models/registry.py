@@ -11,9 +11,9 @@ reference solver's ``get_network``
   Unet… / UnetTransformer…
 
 ``16`` -> feature_reduce 4, ``64`` -> feature_reduce 1. :func:`build_modules`
-builds the FCN family (with or without the STN, DS_FCN's domain-specific
-encoder) and the Unet family (``models/unet.py``); UNETR bundles are not
-ported yet and raise ``NotImplementedError``.
+builds every bundle of the grammar: the FCN family (with or without the
+STN, DS_FCN's domain-specific encoder), the Unet family and UNETR
+(``models/unet.py``, ``models/unetr.py``).
 """
 
 from __future__ import annotations
@@ -110,16 +110,19 @@ def shape_input_channels(spec: NetworkSpec, image_ch: int, num_classes: int) -> 
 
 def build_modules(spec: NetworkSpec, image_ch: int = 1, num_classes: int = 4,
                   encoder_dropout: Optional[float] = None,
-                  decoder_dropout: Optional[float] = None) -> nn.ModuleDict:
+                  decoder_dropout: Optional[float] = None,
+                  image_size: int = 192) -> nn.ModuleDict:
     """The module bundle {image_encoder, segmentation_decoder,
-    [image_decoder], [shape_encoder, shape_decoder]} of a spec."""
+    [image_decoder], [shape_encoder, shape_decoder]} of a spec;
+    ``image_size`` is the side of the square crops UNETR's ViT is built for."""
     r = spec.feature_reduce
     latent = 512 // r
     if spec.is_unet:
         from maxstyle_tpu_torch.models.unet import build_unet_modules
         modules = build_unet_modules(spec, image_ch=image_ch, num_classes=num_classes,
                                      encoder_dropout=encoder_dropout,
-                                     decoder_dropout=decoder_dropout)
+                                     decoder_dropout=decoder_dropout,
+                                     image_size=image_size)
     else:
         modules = nn.ModuleDict()
         modules["image_encoder"] = DualBranchEncoder(

@@ -5,7 +5,8 @@ Counterpart of ``maxstyle_tpu/models/unet.py``: the building blocks
 triplet solver's :class:`UnetEncoder` (the five-level skip pyramid
 [x1..x5]) and :class:`UnetDecoder`, the monolithic :class:`UNet` of the
 baseline solver, :class:`DeeplySupervisedUNet`, :class:`UNetv2`, and
-:func:`build_unet_modules`, the Unet bundle of the network_type grammar.
+:func:`build_unet_modules`, the Unet bundle of the network_type grammar
+(UNETR's modules are in ``models/unetr.py``).
 
 The decoder's style hooks follow the FCN decoder's protocol: 0 = the bottom
 feature x5, 1..4 = after up1..up4, 5 = after the output conv and its
@@ -26,9 +27,6 @@ from torch import nn
 from maxstyle_tpu_torch.models import layers
 from maxstyle_tpu_torch.models.encoder_decoder import StyleFns, _maybe_style
 from maxstyle_tpu_torch.ops.intensity import instance_norm
-
-UNETR_ITEM = "ROADMAP Queue 1 item 7.1 (UNETR with its ViT import and parallel/tp.py)"
-
 
 def _act(kind: str):
     return torch.relu if kind == "relu" else layers.lrelu
@@ -154,13 +152,14 @@ class UnetEncoder(nn.Module):
 class UnetDecoder(nn.Module):
     """Skip-connected decoder over the [x1..x5] pyramid with the MaxStyle
     hooks {0: bottom, 1..4: after the ups, 5: after the output conv}.
-    ``last_act``: "sigmoid", "instance_norm" or None."""
+    ``last_act``: "sigmoid", "instance_norm" or None. ``pyramid`` gives the
+    five levels' channels when they are not the UnetEncoder's (UNETR's)."""
 
     def __init__(self, out_ch: int, feature_reduce: int = 1, up_type: str = "bilinear",
                  norm: str = "batch", act: str = "relu", dropout: Optional[float] = None,
-                 last_act: Optional[str] = None):
+                 last_act: Optional[str] = None, pyramid: Optional[Sequence[int]] = None):
         super().__init__()
-        p = _pyramid_channels(feature_reduce)
+        p = list(pyramid) if pyramid is not None else _pyramid_channels(feature_reduce)
         outs = [256 // feature_reduce, 128 // feature_reduce, 64 // feature_reduce,
                 64 // feature_reduce]
         below = [p[4]] + outs[:3]  # channels coming up into up1..up4
@@ -251,31 +250,43 @@ class UNetv2(nn.Module):
 
 def build_unet_modules(spec, image_ch: int = 1, num_classes: int = 4,
                        encoder_dropout: Optional[float] = None,
-                       decoder_dropout: Optional[float] = None) -> nn.ModuleDict:
+                       decoder_dropout: Optional[float] = None,
+                       image_size: int = 192) -> nn.ModuleDict:
     """The Unet bundle of a parsed spec: UnetEncoder and a UnetDecoder
-    segmentation head; the image decoder is a UnetDecoder over the whole
-    pyramid for ``Unet_im_recon`` types, else the FCN ``Decoder`` over the
-    bottom feature. ``registry.build_modules`` adds the STN's shape modules,
-    as for the FCN family. UNETR is refused."""
+    segmentation head, or for ``UnetTransformer`` types UNETR's encoder (a
+    ViT-B/16 at hidden 768 over ``image_size``^2 crops, feature size 64 // r,
+    ``encoder_dropout`` as the ViT's rate) and decoder. The image decoder is
+    a UnetDecoder over the whole pyramid for ``Unet_im_recon`` types, else
+    the FCN ``Decoder`` over the bottom level; both take the pyramid's
+    channels (UNETR's bottom level has 768). ``registry.build_modules`` adds
+    the STN's shape modules, as for the FCN family."""
     from maxstyle_tpu_torch.models.encoder_decoder import Decoder
 
-    if spec.is_transformer:
-        raise NotImplementedError(f"{spec.network_type}: UNETR is not ported yet: it is "
-                                  f"{UNETR_ITEM}")
     r = spec.feature_reduce
     act = "leaky_relu" if "leaky_relu" in spec.network_type else "relu"
     modules = nn.ModuleDict()
-    modules["image_encoder"] = UnetEncoder(image_ch, r, act=act, dropout=encoder_dropout,
-                                           enable_code_filter=spec.unet_code_filter)
-    modules["segmentation_decoder"] = UnetDecoder(num_classes, r, act=act,
-                                                  dropout=decoder_dropout, last_act=None)
+    if spec.is_transformer:
+        from maxstyle_tpu_torch.models.unetr import (UNETRDecoder, UNETREncoder,
+                                                     unetr_pyramid_channels)
+        f, hidden = 64 // r, 768
+        pyramid = unetr_pyramid_channels(f, hidden)
+        modules["image_encoder"] = UNETREncoder(
+            image_ch, img_size=image_size, feature_size=f, hidden_size=hidden,
+            enable_code_filter=spec.unet_code_filter, dropout_rate=encoder_dropout or 0.0)
+        modules["segmentation_decoder"] = UNETRDecoder(num_classes, f, hidden)
+    else:
+        pyramid = _pyramid_channels(r)
+        modules["image_encoder"] = UnetEncoder(image_ch, r, act=act, dropout=encoder_dropout,
+                                               enable_code_filter=spec.unet_code_filter)
+        modules["segmentation_decoder"] = UnetDecoder(num_classes, r, act=act,
+                                                      dropout=decoder_dropout, last_act=None)
     if spec.has_image_recon:
         if "Unet_im_recon" in spec.network_type:
             modules["image_decoder"] = UnetDecoder(
                 image_ch, r, up_type="Conv2", act=act, dropout=decoder_dropout,
-                last_act=spec.image_decoder_last_act)
+                last_act=spec.image_decoder_last_act, pyramid=pyramid)
         else:
             modules["image_decoder"] = Decoder(
-                512 // r, image_ch, r, up_type="Conv2", dropout=decoder_dropout,
+                pyramid[-1], image_ch, r, up_type="Conv2", dropout=decoder_dropout,
                 last_act=spec.image_decoder_last_act)
     return modules

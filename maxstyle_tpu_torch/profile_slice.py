@@ -8,7 +8,8 @@ For each workload of ``flagship.WORKLOADS`` (``headline``: the flagship,
 effective batch 20 at 192^2; ``prostate_cubic``: the Prostate MaxStyle
 config with the cubic warp, effective batch 20 at 224^2; both MaxStyle
 n_iter=5; the method-branch configs and ``prostate_standard``; the network
-families ``headline_stn``, ``headline_ds_fcn``, ``headline_unet``), in one
+families ``headline_stn``, ``headline_ds_fcn``, ``headline_unet``,
+``headline_unetr``), in one
 process: warms up one ``make_multi_step`` call, runs one more with
 ``torch.cuda.set_sync_debug_mode("warn")`` to count the host's waits for
 the device (each warning is one; the lines that caused them are printed),

@@ -16,13 +16,13 @@ autograd op of ``ops/maxstyle.py`` is its reference in the tests. The
 method branches' procedures are here too: the MixStyle/DSU encoder replay,
 latent-space hard example generation (LSM) and the full forward ``run``.
 
-Every network family of the grammar but UNETR is served: the STN's shape
-refinement (``recon_shape``, the shape losses, ``run`` and ``predict``),
-DS_FCN's domain-specific encoder (domain 0 in the standard pass, domain 1,
-whose statistics are trained, in the hard-example pass) and the Unet family,
-whose codes are skip pyramids: lists of five tensors, or the bottom one of
-them as ``z_i`` unless the image decoder is a ``UnetDecoder``
-(``Unet_im_recon``).
+Every network family of the grammar is served: the STN's shape refinement
+(``recon_shape``, the shape losses, ``run`` and ``predict``), DS_FCN's
+domain-specific encoder (domain 0 in the standard pass, domain 1, whose
+statistics are trained, in the hard-example pass) and the Unet family and
+UNETR, whose codes are skip pyramids: lists of five tensors, or the bottom
+one of them as ``z_i`` unless the image decoder is a ``UnetDecoder``
+(``Unet_im_recon``). UNETR's ViT is built for the config's square crop.
 """
 
 from __future__ import annotations
@@ -175,7 +175,8 @@ class TripletSegmentationSolver:
             nets = build_modules(self.spec, image_ch=self.image_ch,
                                  num_classes=self.num_classes,
                                  encoder_dropout=L.encoder_dropout,
-                                 decoder_dropout=L.decoder_dropout)
+                                 decoder_dropout=L.decoder_dropout,
+                                 image_size=self.config.crop_hw[0])
         return nets.to(self.device)
 
     def init_state(self, seed: int = 0, state_dicts: Optional[Dict] = None,

@@ -23,11 +23,15 @@ port state dict by renaming alone:
 Converters: the FCN family's encoder (plain or domain-specific, DS_FCN),
 code decoupler and decoders, the STN's shape encoder and decoder (a plain
 encoder and an NN decoder), the Unet family's encoder (with its per-level
-code filters) and decoder, and the baseline zoo's FCN (``convert_fcn``).
+code filters) and decoder, the baseline zoo's FCN (``convert_fcn``), and
+UNETR's ViT trunk from a MONAI ViT state dict (``convert_unetr_vit``, with
+the fused qkv's columns put in the port's head-major order).
 Every key of the file is either converted or a ``num_batches_tracked``;
 anything else raises, and the caller loads the result with ``strict=True``,
-so nothing is skipped on either side. UNETR modules are refused with
-``NotImplementedError``: their model is not ported yet.
+so nothing is skipped on either side. A whole reference UNETR module is
+refused with ``ValueError``: the JAX package has no importer for one either
+(its ``convert_module_state_dict`` sends a UNETR encoder to the Unet
+encoder's converter, which cannot read it).
 """
 
 from __future__ import annotations
@@ -38,14 +42,7 @@ from typing import Dict, List, Mapping, Tuple
 
 import torch
 
-from maxstyle_tpu_torch.models.unet import UNETR_ITEM
-
 StateDict = Dict[str, torch.Tensor]
-NOT_PORTED = UNETR_ITEM
-
-
-def _not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(f"importing {what} is not ported yet: its model is {NOT_PORTED}")
 
 
 class _Reader:
@@ -243,6 +240,54 @@ def _convert_fcn(sd: Mapping) -> StateDict:
     return out
 
 
+def _linear(sd: Mapping, name: str) -> StateDict:
+    """nn.Linear -> the port's nn.Linear: the same layout."""
+    return _conv(sd, name)
+
+
+def _layernorm(sd: Mapping, name: str) -> StateDict:
+    return {k: sd[f"{name}.{k}"] for k in ("weight", "bias")}
+
+
+def _qkv_to_head_major(weight: torch.Tensor, num_heads: int) -> torch.Tensor:
+    """A fused qkv Linear's weight [3*H, H] with MONAI's (qkv, head, dim)
+    output rows (its ``b h (qkv l d)`` rearrange) -> the port's head-major
+    (head, qkv, dim) rows (``models/unetr.SelfAttention``)."""
+    d = weight.shape[0] // (3 * num_heads)
+    w = weight.reshape((3, num_heads, d) + tuple(weight.shape[1:]))
+    return w.transpose(0, 1).reshape(weight.shape).contiguous()
+
+
+def _convert_unetr_vit(sd: Mapping, num_layers: int, num_heads: int) -> StateDict:
+    out: StateDict = {
+        **_under("patch_embed", _conv(sd, "patch_embedding.patch_embeddings")),
+        "pos_embedding": sd["patch_embedding.position_embeddings"],
+        **_under("norm", _layernorm(sd, "norm")),
+    }
+    for i in range(num_layers):
+        p = f"blocks.{i}"
+        out.update(_under(f"block{i}", {
+            **_under("norm1", _layernorm(sd, f"{p}.norm1")),
+            **_under("norm2", _layernorm(sd, f"{p}.norm2")),
+            "attn.qkv.weight": _qkv_to_head_major(sd[f"{p}.attn.qkv.weight"], num_heads),
+            **_under("attn.out_proj", _linear(sd, f"{p}.attn.out_proj")),
+            **_under("linear1", _linear(sd, f"{p}.mlp.linear1")),
+            **_under("linear2", _linear(sd, f"{p}.mlp.linear2")),
+        }))
+    return out
+
+
+def convert_unetr_vit(sd: Mapping[str, torch.Tensor], num_layers: int = 12,
+                      num_heads: int = 12) -> StateDict:
+    """A MONAI ViT state dict (monai/networks/nets/vit.py with its blocks:
+    ``patch_embedding.patch_embeddings`` (conv), ``patch_embedding.
+    position_embeddings``, ``blocks.{i}.{norm1, attn.qkv, attn.out_proj,
+    norm2, mlp.linear1, mlp.linear2}``, the trailing ``norm``) -> the state
+    dict of ``models/unetr.ViT``. The qkv Linear has no bias (MONAI's
+    default); a key the ViT has no counterpart for raises."""
+    return _strict(lambda r: _convert_unetr_vit(r, num_layers, num_heads), sd, "UNETR ViT")
+
+
 def _strict(convert, sd: Mapping[str, torch.Tensor], what: str) -> StateDict:
     """``convert(sd)``, refusing a key of ``sd`` that it did not read."""
     reader = _Reader(sd)
@@ -281,10 +326,13 @@ def convert_module_state_dict(sd: Mapping[str, torch.Tensor], module_name: str,
     """One module's reference state dict -> the port module's state dict,
     by the module's name and the network's spec (a Unet's encoder and
     decoders, and the image decoder of ``Unet_im_recon`` types, are the
-    UNet's; UNETR is refused)."""
+    UNet's). A UNETR network's modules raise ``ValueError``."""
     is_unet = spec is not None and getattr(spec, "is_unet", False)
     if spec is not None and getattr(spec, "is_transformer", False):
-        raise _not_ported(f"the UNETR module {module_name!r}")
+        raise ValueError(
+            f"{module_name!r} of {spec.network_type}: the JAX package has no importer for a "
+            "reference UNETR checkpoint, and neither has the port; convert_unetr_vit "
+            "imports a MONAI ViT state dict into the UNETR encoder's ViT (image_encoder.vit)")
     if module_name == "image_encoder":
         convert = convert_unet_encoder if is_unet else convert_dual_branch_encoder
     elif module_name == "segmentation_decoder":

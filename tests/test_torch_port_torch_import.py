@@ -14,8 +14,9 @@ each with ``num_batches_tracked`` buffers. Checked:
   same imported weights, at test_torch_port_model's tolerances (rtol 1e-4,
   atol 5e-5 on O(1) values, here scaled to each output's largest value);
 * ``import_snapshot``, the dropped ``num_batches_tracked``, a key with no
-  counterpart, a pickled module, and UNETR, the one model left without a
-  converter, raising with ROADMAP item 7.1;
+  counterpart, a pickled module, and a reference UNETR module, which has
+  no converter in the JAX package either, raising a ValueError that names
+  the ViT's importer ``convert_unetr_vit`` (tests/test_torch_port_unetr_step.py);
 * every other family's converter (DS_FCN's encoder with its spectral-norm
   vectors, the STN's shape encoder and decoder, the Unet encoders with and
   without code filters and decoders with bilinear and Conv2 ups, the
@@ -196,11 +197,12 @@ def test_batch_counts_are_dropped_and_other_strays_refused(files, tmp_path):
 
 
 def test_unported_models_raise_naming_roadmap_item_7(files):
-    """UNETR is the one model left without a converter; its refusal names
-    ROADMAP Queue 1 item 7.1."""
+    """A reference UNETR module has no converter, in the JAX package either;
+    its refusal says so and names convert_unetr_vit, the ViT's importer."""
     spec = parse_network_type("UnetTransformer_enable_code_filter_16")
     for name in ("image_encoder", "segmentation_decoder"):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 7.1"):
+        with pytest.raises(ValueError, match="JAX package has no importer for a reference "
+                                             "UNETR checkpoint.*convert_unetr_vit"):
             tti.convert_module_state_dict(files["image_encoder"], name, spec)
 
 

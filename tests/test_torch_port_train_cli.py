@@ -155,8 +155,9 @@ def test_infer_cli(tmp_path):
                                            (infer, "--data_parallel", 8)])
 def test_unported_flags_raise_and_name_their_roadmap_item(tmp_path, cli, flag, item):
     """--data_parallel raises; --torch_ckpt_dir imports (here a
-    domain-specific encoder into a DS_FCN run), and raises for the model the
-    port does not have yet, UNETR (ROADMAP item 7.1)."""
+    domain-specific encoder into a DS_FCN run), and raises for a UNETR run:
+    a reference UNETR checkpoint has no importer, in the JAX package either
+    (ROADMAP item 7.1 ported the model and its ViT importer)."""
     args = {train: ["--json_config_path", str(tmp_path / "none.json")],
             infer: ["--input_dir", str(tmp_path), "--out_dir", str(tmp_path / "o")]}[cli]
     if flag == "--torch_ckpt_dir":
@@ -181,7 +182,7 @@ def test_unported_flags_raise_and_name_their_roadmap_item(tmp_path, cli, flag, i
                      + [flag, str(ref), "--device", "cpu"])
 
         run("DS_FCN_16_standard")
-        with pytest.raises(NotImplementedError, match=f"Queue 1 item {item}.1"):
+        with pytest.raises(ValueError, match="no importer for a reference UNETR checkpoint"):
             run("UnetTransformer_enable_code_filter_16")
         return
     with pytest.raises(NotImplementedError, match=f"Queue 1 item {item}"):

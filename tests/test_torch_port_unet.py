@@ -19,11 +19,12 @@
 
 Bars: test_torch_port_model's forwards (rtol 1e-4 / atol 5e-5) and
 statistics (rtol 1e-4 / atol 5e-5); codes and logits at rtol 1e-4 with an
-absolute floor of 1e-4 of their largest value, parameter gradients as
-tests/test_torch_port_stn.py holds them (``assert_grads_match``: rtol 1e-3
-with a floor of 5e-2 of the module's largest gradient, and cosine >
-0.999), and the styled decode's style gradients at rtol 2e-3 with a floor
-of 2e-2 of each tensor's largest gradient and cosine > 0.999. Measured on
+absolute floor of 1e-4 of their largest value, parameter gradients with
+``test_torch_port_grad_bars.assert_grads_match`` (the port's float64
+gradients against JAX's float64 ones at 1e-6 of a module's largest, the
+float32 gaps against JAX's own distance from float64), and the styled
+decode's style gradients at rtol 2e-3 with a floor of 2e-2 of each
+tensor's largest gradient and cosine > 0.999. Measured on
 Unet_16_standard_no_STN at this size against the port's own float64: the
 bottom code x5 lies 7.2e-5 (the port) and 1.2e-4 (JAX) away (largest value
 4.8); the encoder's gradients 1.3e-2 and 7.4e-3 of its largest; the hook-3
@@ -47,7 +48,7 @@ from maxstyle_tpu_torch import convert
 from maxstyle_tpu_torch.models import layers as tl
 from maxstyle_tpu_torch.models.unet import UnetDecoder, UnetEncoder
 from maxstyle_tpu_torch.solver import TripletSegmentationSolver as TSolver
-from tests.test_torch_port_stn import assert_grads_match
+from tests.test_torch_port_grad_bars import assert_grads_match, jax_grads, port_grads
 from tests.test_torch_port_train_step import (INDEXES, assert_port_step_matches, config,
                                               jax_step, jax_styles, port_styles)
 
@@ -182,29 +183,37 @@ def test_standard_pass_losses_stats_and_grads(pair):
     image = np.clip(x + 0.05 * np.random.RandomState(2).randn(*x.shape), 0, 1)
     image = image.astype(np.float32)
 
-    def loss_fn(p):
+    def loss_fn(p, dtype=jnp.float32):
+        s = jax.tree_util.tree_map(lambda a: jnp.asarray(a, dtype), stats)
         out, aux, new_stats = js.standard_training(
-            p, stats, jnp.asarray(x), jnp.asarray(label), jnp.asarray(image), mode="train")
+            p, s, jnp.asarray(x, dtype), jnp.asarray(label), jnp.asarray(image, dtype),
+            mode="train")
         return sum(out), (out, aux, new_stats)
 
     (_, (jout, jaux, jstats)), jgrads = jax.value_and_grad(loss_fn, has_aux=True)(
         jax.tree_util.tree_map(jnp.asarray, params))
     nets = ts.init_state(state_dicts=convert.convert_train_state(params, stats)).modules
+
+    def port_run(n, dtype):
+        out, _ = ts.standard_training(n, nchw(x).to(dtype), torch.from_numpy(label).long(),
+                                      nchw(image).to(dtype), mode="train")
+        sum(out).backward()
+
+    assert_grads_match(port_grads(nets, port_run),
+                       jax_grads(lambda p, dtype: jax.grad(lambda q: loss_fn(q, dtype)[0])(p),
+                                 params, jgrads))
     out, aux = ts.standard_training(nets, nchw(x), torch.from_numpy(label).long(), nchw(image),
                                     mode="train")
-    sum(out).backward()
     for got, want in zip(out, jout):
         np.testing.assert_allclose(float(got.detach()), float(want), rtol=1e-4, atol=1e-6)
     close_scaled(aux.y0, np.asarray(jaux.y0).transpose(0, 3, 1, 2))
     close(aux.recon_image, np.asarray(jaux.recon_image).transpose(0, 3, 1, 2))
     want_stats = convert.convert_train_state(params, to_np(jstats))
-    want_grads = convert.convert_train_state(to_np(jgrads), {})
     for name, module in nets.items():
         sd = module.state_dict()
         for key, want in want_stats[name].items():
             if key.endswith(("running_mean", "running_var")):
                 close(sd[key], want.numpy(), err_msg=f"{name}.{key}")
-        assert_grads_match(name, module, want_grads[name])
 
 
 def test_styled_decode_of_the_image_decoder_matches_jax(pair):
