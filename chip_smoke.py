@@ -120,7 +120,26 @@ Phases, each printing its own lines; any failure exits nonzero:
              ResUNet_16 (Adam 1e-4, EMA) at batch 20, 192^2, 4 classes, on
              synthetic slices made on the card: one warm-up step and 8 timed
              steps each; finite losses, every parameter tensor changed, no
-             port kernel launched (the zoo runs none); steps/s.
+             port kernel launched (the zoo runs none); steps/s;
+17. slice_bf16 — configs/ACDC/1500_epoch/MICCAI2022_MaxStyle.json with
+             learning.compute_dtype "bfloat16" at full width (effective
+             batch 20, 224 -> 192, MaxStyle n_iter=5), one warm-up call and 2
+             calls of K=4: finite float32 losses, exactly 21/21/15/1 launches
+             a step (the kernels take float32: the style op casts around
+             them), every parameter, optimizer moment and BatchNorm buffer
+             still float32, every parameter tensor moved, one predict that
+             returns bf16, and a bf16 tensor handed to a kernel refused with
+             a TypeError. Steps/s and peak memory beside phase 5's float32
+             headline, the card's name and power limit;
+18. slice_ngf — the same file with learning.rec_loss_type "ngf" (float32)
+             at full width: finite losses, non-zero NGF reconstruction terms
+             (standard and hard-example), exactly 21/21/15/1 launches a step;
+             then the loss library on the card at the headline's logit and
+             image shapes (every basic_loss_fn type, every consistency
+             divergence at scales 0-2, ngf_loss, the losses_extra functions,
+             mixup and in/outpainting with injected draws, the VGG
+             perceptual loss on a seeded small-plan VGG), each held against
+             the same call on a CPU copy at relative 1e-4, TF32 off.
 
 The family phases 12-15 (four network families) print steps/s and peak
 memory beside the card's name and power limit. The tree of phases 9-11 is
@@ -140,6 +159,8 @@ import sys
 import time
 
 K_INNER = 4
+# steps/s and peak memory (GiB) of each training path, as phase_train measured them
+RATES = {}
 KERNELS = ("maxstyle_stats", "maxstyle_apply", "maxstyle_bwd", "warp_bilinear_nearest",
            "warp_cubic_nearest", "conv3x3_bn_stats")
 # launches per step of each training path; every other kernel launches 0 times
@@ -183,6 +204,9 @@ FAMILY_PATHS = {"slice_stn": "headline_stn", "slice_ds_fcn": "headline_ds_fcn",
 PER_STEP.update({path: PER_STEP["slice"] for path in FAMILY_PATHS})
 # the baseline zoo's path launches no port kernel
 PER_STEP["basic_solver"] = {}
+# the bf16 compute policy and the NGF reconstruction loss on the headline's
+# config file (flagship.WORKLOADS "headline_bf16", "headline_ngf")
+PER_STEP["slice_bf16"] = PER_STEP["slice_ngf"] = PER_STEP["slice"]
 BASIC_ZOO = ("UNet_16", "FCN_16", "ResUNet_16")
 BASIC_STEPS = 8
 # which path's run each kernel's "launches" is read from
@@ -850,8 +874,8 @@ def phase_train(path: str, solver, smi: str, desc: str, rounds: int = 3,
                 channel: str = None, check=None):
     """Drive one training path: K_INNER-step calls of make_multi_step (one
     warm-up, then ``rounds`` rounds of 2), with the launch counts set to 0
-    just before and read just after. Checks finite losses, a non-zero
-    ``channel`` when given, and the launches per step of PER_STEP[path];
+    just before and read just after. Checks finite float32 losses, a
+    non-zero ``channel`` when given, and the launches per step of PER_STEP[path];
     then calls ``check(state, metrics of the last call)`` when given."""
     import torch
     from maxstyle_tpu_torch import kernels
@@ -866,15 +890,20 @@ def phase_train(path: str, solver, smi: str, desc: str, rounds: int = 3,
     launches = dict(kernels.LAUNCHES)
     steps = state.step
     last = {k: float(v) for k, v in metrics.items()}
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    RATES[path] = (rate, peak)
+    compute = str(solver.compute_dtype).replace("torch.", "")
     print(f"{path}: metrics of the last call (mean of {K_INNER} steps) {json.dumps(last)}")
     print(f"{path}: launches over {steps} steps {json.dumps(launches)}")
     print(f"{path}: {rate:.4f} steps/s (median of {rounds} rounds of 2 calls x {K_INNER} steps, "
-          f"{desc}, float32) on {smi}; phase {time.perf_counter() - t0:.1f} s; "
-          f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+          f"{desc}, {compute}) on {smi}; phase {time.perf_counter() - t0:.1f} s; "
+          f"peak memory {peak:.2f} GiB")
     if steps != K_INNER * (1 + 2 * rounds):
         fail(f"{path} ran {steps} steps, expected {K_INNER * (1 + 2 * rounds)}")
     if not all(math.isfinite(v) for v in last.values()):
         fail(f"non-finite loss in {path}")
+    if any(v.dtype != torch.float32 for v in metrics.values()):
+        fail(f"{path}: a loss is not float32: {sorted({str(v.dtype) for v in metrics.values()})}")
     if channel is not None and last[channel] == 0.0:
         fail(f"{path}: the branch channel {channel} is 0")
     for name in KERNELS:
@@ -1095,6 +1124,209 @@ def phase_basic_solver(smi: str):
     launches = dict(kernels.LAUNCHES)
     if any(launches.values()):
         fail(f"basic_solver: the zoo launched port kernels {launches}")
+    return launches
+
+
+def _check_bf16(solver, state, last):
+    """Phase 17's gates after training: the master state (every parameter,
+    optimizer moment and BatchNorm buffer) is still float32, every parameter
+    tensor moved from the initial state (measure_throughput starts from
+    seed 0), ``predict`` returns bf16, and a bf16 tensor handed to a kernel
+    is refused with a TypeError before it launches."""
+    import torch
+    from maxstyle_tpu_torch import kernels
+    from maxstyle_tpu_torch.ops import maxstyle_kernels as mk
+
+    tensors = list(state.modules.parameters()) + list(state.modules.buffers())
+    moments = [v for opt in state.optimizers.values() for st in opt.state.values()
+               for v in st.values() if torch.is_tensor(v) and v.is_floating_point()]
+    not32 = sorted({str(t.dtype) for t in tensors + moments if t.dtype != torch.float32})
+    params = dict(state.modules.named_parameters())
+    moved = sum(not torch.equal(p, params[k])
+                for k, p in solver.init_state(0).modules.named_parameters())
+    cfg = solver.config
+    x = torch.rand((cfg.learning.batch_size, *cfg.crop_hw, 1), device="cuda",
+                   generator=torch.Generator(device="cuda").manual_seed(17))
+    kernels.reset_launches()
+    pred = solver.predict(state.modules, x)
+    refusal = None
+    try:
+        mk.channel_moments(torch.zeros((2, 3, 4, 4), dtype=torch.bfloat16, device="cuda"), 1e-6)
+    except TypeError as e:
+        refusal = str(e)
+    torch.cuda.synchronize()
+    print(f"slice_bf16: {len(tensors)} parameter and buffer tensors and {len(moments)} optimizer "
+          f"moments, not float32: {not32 or 'none'}; parameter tensors moved {moved}/"
+          f"{len(params)}; predict {tuple(pred.shape)} {pred.dtype}; a bf16 kernel input: "
+          f"{refusal}; launches {json.dumps(dict(kernels.LAUNCHES))}")
+    if not32 or not moments:
+        fail(f"slice_bf16: master state not float32 ({not32}) or no optimizer moments")
+    if moved != len(params):
+        fail("slice_bf16: a parameter tensor did not move")
+    if pred.dtype != torch.bfloat16 or not torch.isfinite(pred).all():
+        fail(f"slice_bf16: predict returned {pred.dtype}, or non-finite values")
+    if refusal is None or any(kernels.LAUNCHES.values()):
+        fail("slice_bf16: a bf16 tensor reached a kernel, or predict launched one")
+
+
+def phase_bf16(smi: str):
+    """Phase 17: the headline's config file with compute_dtype "bfloat16"
+    at full width; steps/s and peak memory beside phase 5's float32
+    headline from this process."""
+    import functools
+
+    from maxstyle_tpu_torch.flagship import WORKLOADS
+
+    solver = WORKLOADS["headline_bf16"](device="cuda")
+    launches = phase_train("slice_bf16", solver, smi,
+                           "headline file with compute_dtype bfloat16, effective batch 20 @192^2",
+                           rounds=1, check=functools.partial(_check_bf16, solver))
+    (r16, m16), (r32, m32) = RATES["slice_bf16"], RATES["slice"]
+    print(f"slice_bf16: {r16:.4f} steps/s, peak memory {m16:.2f} GiB; the float32 headline "
+          f"(phase 5, this process): {r32:.4f} steps/s, peak memory {m32:.2f} GiB; ratio "
+          f"{r16 / r32:.3f}; on {smi}")
+    return launches
+
+
+# phase 18's loss library on the card: the small-channel VGG16-shaped plan,
+# and the largest relative difference from the CPU copy's value (float32,
+# TF32 off on both sides)
+VGG_SMALL_PLAN = [(8, 2), (16, 2), (24, 3), (32, 3), (32, 3)]
+LOSS_RTOL = 1e-4
+
+
+def _seeded_vgg_state_dict(gen):
+    """A torchvision-layout VGG16 state dict for VGG_SMALL_PLAN, seeded."""
+    import torch
+    from maxstyle_tpu_torch.ops import perceptual
+
+    sd, cin = {}, 3
+    for conv_ids, (ch, n_convs) in zip(perceptual._TORCHVISION_CONV_IDX, VGG_SMALL_PLAN):
+        for fi in conv_ids[:n_convs]:
+            sd[f"features.{fi}.weight"] = 0.1 * torch.randn((ch, cin, 3, 3), generator=gen)
+            sd[f"features.{fi}.bias"] = 0.1 * torch.randn((ch,), generator=gen)
+            cin = ch
+    return perceptual.convert_vgg16_torchvision(sd)
+
+
+def _loss_library_on_the_card():
+    """Every loss of the library at the headline's logit [20,4,192,192] and
+    image [20,1,192,192] shapes, on the card against the same call on a CPU
+    copy of the same inputs: each basic_loss_fn type, each consistency
+    divergence (scales 0, 1, 2), ngf_loss, the losses_extra functions,
+    mixup and in/outpainting with draws made once and given to both, and
+    vgg_perceptual_loss on a seeded small-plan VGG. Values within
+    LOSS_RTOL of the CPU's (relative to the largest absolute value)."""
+    import torch
+    from maxstyle_tpu_torch import losses as L
+    from maxstyle_tpu_torch import losses_extra as E
+    from maxstyle_tpu_torch.ops import mixup as M
+    from maxstyle_tpu_torch.ops import perceptual as P
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    t0 = time.perf_counter()
+    g = torch.Generator().manual_seed(18)
+    n, c, h, w = 20, 4, 192, 192
+    x = {"logits": 3.0 * torch.randn((n, c, h, w), generator=g),
+         "ref": 3.0 * torch.randn((n, c, h, w), generator=g),
+         "labels": torch.randint(0, c, (n, h, w), generator=g),
+         "image": torch.rand((n, 1, h, w), generator=g),
+         "image2": torch.rand((n, 1, h, w), generator=g),
+         "pair": (torch.rand((n,), generator=g) > 0.5).float()}
+    mix = M.sample_mixup(g, n)
+    win = M.draw_window_masking(g, (n, 1, h, w))
+    vgg = _seeded_vgg_state_dict(g)
+    cw = (0.2, 0.25, 0.3, 0.25)
+
+    calls = {f"basic_loss_fn[{t}]": lambda d, t=t: L.basic_loss_fn(d["logits"], d["labels"], t)
+             for t in ("cross entropy", "weighted cross entropy", "dice", "weighted dice",
+                       "foreground dice", "focal", "contour_smooth")}
+    calls.update({f"segmentation_consistency[{v}]": lambda d, v=v: L.segmentation_consistency(
+        d["logits"], d["ref"], divergence_types=(v,), divergence_weights=(1.0,),
+        class_weights=cw, scales=(0, 1, 2)) for v in ("kl", "ce", "weighted ce", "Dice",
+                                                      "mse", "contour")})
+    calls.update({
+        "ngf_loss": lambda d: L.ngf_loss(d["image"], d["image2"]),
+        "entropy_loss_probs": lambda d: L.entropy_loss_probs(torch.softmax(d["logits"], 1)),
+        "entropy_loss_logits": lambda d: L.entropy_loss_logits(d["logits"]),
+        "js_divergence": lambda d: L.js_divergence(d["logits"], d["ref"]),
+        "tv_loss": lambda d: L.tv_loss(d["image"]),
+        "cosine_similarity_loss": lambda d: L.cosine_similarity_loss(d["logits"], d["ref"]),
+        "style_loss": lambda d: E.style_loss(d["logits"], d["ref"]),
+        "contrastive_loss": lambda d: E.contrastive_loss(d["image"], d["image2"], d["pair"]),
+        "triplet_loss": lambda d: E.triplet_loss(d["logits"], d["ref"], d["ref"].flip(2)),
+        "brier_loss": lambda d: E.brier_loss(d["logits"], d["labels"]),
+        "ncc_loss": lambda d: E.ncc_loss(d["image"], d["image2"]),
+        "local_ncc_loss": lambda d: E.local_ncc_loss(d["image"], d["image2"]),
+        "cross_entropy_3d": lambda d: E.cross_entropy_3d(
+            d["logits"].reshape(5, 4, c, h, w).transpose(1, 2), d["labels"].reshape(5, 4, h, w),
+            weight=cw),
+        "smooth_l1_loss": lambda d: E.smooth_l1_loss(d["image"], d["image2"]),
+        "laplacian_smoothness_loss": lambda d: E.laplacian_smoothness_loss(d["image"]),
+        "hierarchical_loss": lambda d: E.hierarchical_loss(
+            [d["logits"][:, :2], d["logits"][:, :3], d["logits"]], d["labels"]),
+        "filter_unlabelled_predictions": lambda d: E.filter_unlabelled_predictions(
+            torch.softmax(d["logits"], 1), 0.6),
+        "sharpen_predictions": lambda d: E.sharpen_predictions(d["logits"]),
+        "mixup_data": lambda d: torch.cat([t.flatten() for t in M.mixup_data(
+            d["mix"], d["image"], d["labels"], c)]),
+        "mixup_loss": lambda d: M.mixup_loss(d["logits"], d["labels"], d["mix"], c),
+        "random_inpainting": lambda d: M.random_inpainting(d["image"], d["win"]),
+        "random_outpainting": lambda d: M.random_outpainting(d["image"], d["win"]),
+        "vgg_perceptual_loss": lambda d: P.vgg_perceptual_loss(d["image"], d["image2"],
+                                                               state_dict=d["vgg"]),
+    })
+
+    def on(device):
+        d = {k: v.to(device) for k, v in x.items()}
+        d["mix"] = M.MixupDraw(mix.lam.to(device), mix.perm.to(device))
+        d["win"] = {"blocks": {k: v.to(device) for k, v in win["blocks"].items()},
+                    "noise": win["noise"].to(device)}
+        d["vgg"] = {k: v.to(device) for k, v in vgg.items()}
+        return d
+
+    full_plan, P._VGG16_PLAN = P._VGG16_PLAN, VGG_SMALL_PLAN
+    try:
+        cpu, gpu = on("cpu"), on("cuda")
+        errs = {}
+        for name, fn in calls.items():
+            with torch.no_grad():
+                want = fn(cpu).double()
+                got = fn(gpu).double().cpu()
+            errs[name] = float((got - want).abs().max() / want.abs().max().clamp_min(1e-30))
+            if not torch.isfinite(got).all():
+                fail(f"slice_ngf: {name} is not finite on the card")
+    finally:
+        P._VGG16_PLAN = full_plan
+    torch.cuda.synchronize()
+    worst = max(errs, key=errs.get)
+    print(f"slice_ngf: {len(calls)} loss-library calls on the card against a CPU copy, largest "
+          f"relative difference {errs[worst]:.3e} ({worst}), bar {LOSS_RTOL:g}; "
+          f"{time.perf_counter() - t0:.1f} s")
+    print(f"slice_ngf: relative differences {json.dumps(errs)}")
+    bad = {k: v for k, v in errs.items() if not v <= LOSS_RTOL}
+    if bad:
+        fail(f"slice_ngf: the card disagrees with the CPU copy: {bad}")
+
+
+def _check_ngf(state, last):
+    for key in ("loss/standard/image", "loss/hard/image"):
+        if not last[key] > 0:
+            fail(f"slice_ngf: the NGF reconstruction term {key} is {last[key]}, expected > 0")
+
+
+def phase_ngf(smi: str):
+    """Phase 18: the headline's config file with rec_loss_type "ngf" at full
+    width, then the loss library on the card."""
+    from maxstyle_tpu_torch.flagship import WORKLOADS
+
+    solver = WORKLOADS["headline_ngf"](device="cuda")
+    launches = phase_train("slice_ngf", solver, smi,
+                           "headline file with rec_loss_type ngf, effective batch 20 @192^2",
+                           rounds=1, check=_check_ngf)
+    del solver
+    _loss_library_on_the_card()
     return launches
 
 
@@ -1738,6 +1970,8 @@ def main():
         shutil.rmtree(tmp, ignore_errors=True)
     paths.update(phase_families(smi))
     paths["basic_solver"] = phase_basic_solver(smi)
+    paths["slice_bf16"] = phase_bf16(smi)
+    paths["slice_ngf"] = phase_ngf(smi)
 
     out = []
     for kname, row in rows.items():

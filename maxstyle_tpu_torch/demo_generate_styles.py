@@ -148,7 +148,7 @@ def main(argv=None):
         nets, z_i, reference_segmentation=label, ms_cfg=ms_cfg,
         generator=prng.stream(opt.seed + 1, "styles", k, device=dev)) for k in range(2)]
 
-    host = [t[:, 0].cpu().numpy() for t in (image, recon, styled[0], styled[1])]
+    host = [t[:, 0].float().cpu().numpy() for t in (image, recon, styled[0], styled[1])]
     suffix = f"adv n_iter={n_iter}" if n_iter else "sampled"
     panels, titles = [], []
     for i in range(min(n, 4)):

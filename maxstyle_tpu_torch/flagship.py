@@ -27,7 +27,12 @@ Counterpart of ``__graft_entry__._flagship_solver`` and
   (FCN_16_standard), ``headline_ds_fcn`` (DS_FCN_16_standard),
   ``headline_unet`` (Unet_16_Unet_im_recon_no_STN), ``headline_unetr``
   (UnetTransformer_16_no_STN: a ViT-B/16 at hidden 768, 12 layers, over the
-  192^2 crops).
+  192^2 crops); and the headline's file with one learning option changed:
+  ``headline_bf16`` (``compute_dtype="bfloat16"``: bf16 activations,
+  float32 weights, optimizer state, BatchNorm statistics and losses),
+  ``headline_unetr_bf16`` (``headline_unetr`` so) and ``headline_ngf``
+  (``rec_loss_type="ngf"``, the normalized-gradient-field reconstruction
+  loss).
 * :func:`measure_throughput` times ``make_multi_step`` on synthetic raw
   slices, with the policy, sizes and class count of the solver's config;
   ``python3 -m maxstyle_tpu_torch.flagship --workload <name>`` prints its
@@ -61,10 +66,11 @@ ACDC_MAXSTYLE = CONFIGS / "ACDC" / "1500_epoch" / "MICCAI2022_MaxStyle.json"
 
 
 def set_float32_policy(device: torch.device) -> None:
-    """The port computes in float32, TF32 off for both convolutions and
-    matrix products: the JAX package's float32 semantics, against which the
-    port is held. Whether bf16 or TF32 pays on the H100 is for a measured
-    change to decide."""
+    """Whatever the port computes in float32 (everything, or under
+    ``compute_dtype="bfloat16"`` the norms, the style ops and the losses)
+    runs with TF32 off for both convolutions and matrix products: the JAX
+    package's float32 semantics, against which the port is held. Whether
+    TF32 pays on the H100 is for a measured change to decide."""
     if device.type == "cuda":
         torch.backends.cudnn.allow_tf32 = False
         torch.backends.cuda.matmul.allow_tf32 = False
@@ -168,12 +174,15 @@ def config_file_solver(path, device=None) -> TripletSegmentationSolver:
     return config_solver(load_config(path), device)
 
 
-def family_solver(network_type: str, device=None) -> TripletSegmentationSolver:
+def family_solver(network_type: str = "FCN_16_standard_no_STN", device=None,
+                  **learning) -> TripletSegmentationSolver:
     """The headline's config file with ``network_type`` in place of its
-    FCN_16_standard_no_STN."""
+    FCN_16_standard_no_STN and the ``learning`` options given."""
     cfg = load_config(ACDC_MAXSTYLE)
-    cfg = dataclasses.replace(cfg, segmentation_model=dataclasses.replace(
-        cfg.segmentation_model, network_type=network_type))
+    cfg = dataclasses.replace(
+        cfg, segmentation_model=dataclasses.replace(cfg.segmentation_model,
+                                                    network_type=network_type),
+        learning=dataclasses.replace(cfg.learning, **learning))
     return config_solver(cfg, device)
 
 
@@ -197,7 +206,11 @@ WORKLOADS = {"headline": flagship_solver, "prostate_cubic": prostate_cubic_solve
              **{name: functools.partial(config_file_solver, path)
                 for name, path in BRANCH_CONFIGS.items()},
              **{name: functools.partial(family_solver, network_type)
-                for name, network_type in FAMILIES.items()}}
+                for name, network_type in FAMILIES.items()},
+             "headline_bf16": functools.partial(family_solver, compute_dtype="bfloat16"),
+             "headline_unetr_bf16": functools.partial(family_solver, FAMILIES["headline_unetr"],
+                                                      compute_dtype="bfloat16"),
+             "headline_ngf": functools.partial(family_solver, rec_loss_type="ngf")}
 
 
 def main(argv=None) -> None:

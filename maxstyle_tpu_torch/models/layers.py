@@ -9,6 +9,15 @@ SPP and BatchInstanceNorm blocks), with the JAX package's initialisation
 * transposed-conv weights N(0, 0.02), bias zero;
 * BatchNorm scale N(1, 0.02), bias 0, eps 1e-5, momentum 0.1.
 
+Compute dtype. Every module that holds weights has a ``compute_dtype``
+(None by default), set on a whole bundle by :func:`set_compute_dtype`, as
+flax's ``dtype=`` is on the JAX package's modules. Parameters and running
+statistics stay float32. With a dtype, a convolution or a linear map casts
+its input, weight and bias to it first; a norm takes its statistics and
+normalizes in float32 and returns the dtype. Without one, a convolution
+computes in the promotion of its input's and weight's dtypes (flax's
+``promote_dtype``) and a norm returns its input's dtype.
+
 BatchNorm mode protocol. Every module's ``forward`` takes ``mode``:
 
 * ``"train"`` — batch statistics (biased variance) normalize; the running
@@ -44,16 +53,80 @@ def _kaiming_fan_in_(w: torch.Tensor) -> torch.Tensor:
         return w.normal_(0.0, (2.0 / fan_in) ** 0.5)
 
 
-def conv3x3(in_ch: int, out_ch: int, bias: bool = True, stride: int = 1) -> nn.Conv2d:
-    conv = nn.Conv2d(in_ch, out_ch, 3, stride=stride, padding=1, bias=bias)
+def _cast_dtype(module: nn.Module, x: torch.Tensor) -> torch.dtype:
+    """The dtype a weighted module computes in: its compute dtype, or the
+    promotion of its input's and its weight's."""
+    return module.compute_dtype or torch.promote_types(x.dtype, module.weight.dtype)
+
+
+def _cast(t: Optional[torch.Tensor], dtype: torch.dtype) -> Optional[torch.Tensor]:
+    return None if t is None else t.to(dtype)
+
+
+class Conv2d(nn.Conv2d):
+    """nn.Conv2d that casts its input, weight and bias to its compute dtype."""
+
+    compute_dtype: Optional[torch.dtype] = None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = _cast_dtype(self, x)
+        return self._conv_forward(x.to(dt), self.weight.to(dt), _cast(self.bias, dt))
+
+
+class ConvTranspose2d(nn.ConvTranspose2d):
+    """nn.ConvTranspose2d that casts like :class:`Conv2d`."""
+
+    compute_dtype: Optional[torch.dtype] = None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = _cast_dtype(self, x)
+        return F.conv_transpose2d(x.to(dt), self.weight.to(dt), _cast(self.bias, dt),
+                                  self.stride, self.padding, self.output_padding,
+                                  self.groups, self.dilation)
+
+
+class Linear(nn.Linear):
+    """nn.Linear that casts like :class:`Conv2d` (flax's Dense)."""
+
+    compute_dtype: Optional[torch.dtype] = None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = _cast_dtype(self, x)
+        return F.linear(x.to(dt), self.weight.to(dt), _cast(self.bias, dt))
+
+
+class LayerNorm(nn.LayerNorm):
+    """nn.LayerNorm that, with a compute dtype, normalizes in float32 and
+    returns the dtype (flax's LayerNorm: statistics and the affine map in
+    float32, then the cast)."""
+
+    compute_dtype: Optional[torch.dtype] = None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.compute_dtype is None:
+            return super().forward(x)
+        return super().forward(x.float()).to(self.compute_dtype)
+
+
+def set_compute_dtype(modules: nn.Module, dtype: Optional[torch.dtype]) -> nn.Module:
+    """Give every module of ``modules`` that has a ``compute_dtype`` this one
+    (None for float32 compute); returns ``modules``."""
+    for m in modules.modules():
+        if hasattr(m, "compute_dtype"):
+            m.compute_dtype = dtype
+    return modules
+
+
+def conv3x3(in_ch: int, out_ch: int, bias: bool = True, stride: int = 1) -> Conv2d:
+    conv = Conv2d(in_ch, out_ch, 3, stride=stride, padding=1, bias=bias)
     _kaiming_fan_in_(conv.weight)
     if bias:
         nn.init.zeros_(conv.bias)
     return conv
 
 
-def conv1x1(in_ch: int, out_ch: int, bias: bool = True) -> nn.Conv2d:
-    conv = nn.Conv2d(in_ch, out_ch, 1, bias=bias)
+def conv1x1(in_ch: int, out_ch: int, bias: bool = True) -> Conv2d:
+    conv = Conv2d(in_ch, out_ch, 1, bias=bias)
     _kaiming_fan_in_(conv.weight)
     if bias:
         nn.init.zeros_(conv.bias)
@@ -68,7 +141,13 @@ class BatchNorm(nn.Module):
     "eval" passes normalize with those: the JAX step threads its updated
     statistics through the loss function, so an eval-mode forward there
     (the AdvNoise/AdvBias consistency) differentiates through them into
-    the weights that produced the batch statistics."""
+    the weights that produced the batch statistics.
+
+    With a compute dtype the input is cast to float32 first and the result
+    to the dtype: the JAX package's BatchNorm reduces, normalizes and applies
+    the affine map in float32 whatever the activations' dtype."""
+
+    compute_dtype: Optional[torch.dtype] = None
 
     def __init__(self, features: int, momentum: float = 0.1, eps: float = 1e-5):
         super().__init__()
@@ -109,6 +188,11 @@ class BatchNorm(nn.Module):
         return scale, self.bias - mean * scale
 
     def forward(self, x: torch.Tensor, mode: str) -> torch.Tensor:
+        if self.compute_dtype is None:
+            return self._normalize(x, mode)
+        return self._normalize(x.float(), mode).to(self.compute_dtype)
+
+    def _normalize(self, x: torch.Tensor, mode: str) -> torch.Tensor:
         if mode == "train":
             if self.track_live:
                 return self._train_live(x)
@@ -143,7 +227,10 @@ def live_running_stats(nets: nn.Module):
 class InstanceNorm(nn.Module):
     """Per-(sample, channel) normalization with the biased variance and eps
     1e-5 inside the sqrt, the same in every mode; with ``affine`` a learned
-    scale (ones) and bias (zeros) follow."""
+    scale (ones) and bias (zeros) follow. With a compute dtype, in float32
+    and cast to the dtype after."""
+
+    compute_dtype: Optional[torch.dtype] = None
 
     def __init__(self, features: int, affine: bool = False):
         super().__init__()
@@ -153,11 +240,13 @@ class InstanceNorm(nn.Module):
             self.bias = nn.Parameter(torch.zeros(features))
 
     def forward(self, x: torch.Tensor, mode: str) -> torch.Tensor:
+        if self.compute_dtype is not None:
+            x = x.float()
         var, mean = torch.var_mean(x, dim=(2, 3), keepdim=True, unbiased=False)
         out = (x - mean) / torch.sqrt(var + 1e-5)
         if self.affine:
             out = out * self.weight[:, None, None] + self.bias[:, None, None]
-        return out
+        return out if self.compute_dtype is None else out.to(self.compute_dtype)
 
 
 class Identity(nn.Module):
@@ -222,9 +311,12 @@ class TorchSNConv3x3(nn.Module):
     gradient: v = normalize(W^T u), u = normalize(W v); "train" writes the
     new u and v back, "frozen" drops them; "eval" uses the stored ones.
     Then sigma = u . (W v) with u and v constants and W live, so the
-    backward carries the quotient-rule term of W / sigma.
+    backward carries the quotient-rule term of W / sigma. Sigma and W / sigma
+    are float32; the convolution casts like :class:`Conv2d`.
     ``torch.nn.utils.spectral_norm`` is not used: its hook writes u and v
     back in every training forward."""
+
+    compute_dtype: Optional[torch.dtype] = None
 
     def __init__(self, in_ch: int, out_ch: int):
         super().__init__()
@@ -248,25 +340,28 @@ class TorchSNConv3x3(nn.Module):
         elif mode != "eval":
             raise ValueError(f"mode must be one of {MODES}, got {mode!r}")
         sigma = torch.dot(u, w_mat @ v)
-        return F.conv2d(x, self.weight / sigma, self.bias, padding=1)
+        dt = _cast_dtype(self, x)
+        return F.conv2d(x.to(dt), (self.weight / sigma).to(dt), self.bias.to(dt), padding=1)
 
 
 def upsample2x(x: torch.Tensor, method: str = "NN") -> torch.Tensor:
     """x2 by nearest neighbour, or bilinear with align_corners=True (output
     j samples the input at j*(H-1)/(2H-1)), which the JAX package computes
-    as two constant-matrix contractions: the two agree to rounding."""
+    as two constant-matrix contractions, in float32 for half-precision
+    activations: the two agree to rounding."""
     if method in ("NN", "nearest"):
         return F.interpolate(x, scale_factor=2, mode="nearest")
     if method == "bilinear":
-        return F.interpolate(x, size=(2 * x.shape[2], 2 * x.shape[3]), mode="bilinear",
-                             align_corners=True)
+        xf = x.float() if x.dtype in (torch.bfloat16, torch.float16) else x
+        return F.interpolate(xf, size=(2 * x.shape[2], 2 * x.shape[3]), mode="bilinear",
+                             align_corners=True).to(x.dtype)
     raise ValueError(method)
 
 
 def transposed_conv(features: int, kernel: int, padding: int,
-                    in_features: Optional[int] = None) -> nn.ConvTranspose2d:
-    conv = nn.ConvTranspose2d(in_features or features, features, kernel, stride=2,
-                              padding=padding)
+                    in_features: Optional[int] = None) -> ConvTranspose2d:
+    conv = ConvTranspose2d(in_features or features, features, kernel, stride=2,
+                           padding=padding)
     with torch.no_grad():
         conv.weight.normal_(0.0, 0.02)
         conv.bias.zero_()

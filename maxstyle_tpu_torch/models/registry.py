@@ -21,9 +21,11 @@ from __future__ import annotations
 import dataclasses
 from typing import Optional
 
+import torch
 from torch import nn
 
 from maxstyle_tpu_torch.models.encoder_decoder import Decoder, DualBranchEncoder, Encoder
+from maxstyle_tpu_torch.models.layers import set_compute_dtype
 
 
 @dataclasses.dataclass(frozen=True)
@@ -111,10 +113,14 @@ def shape_input_channels(spec: NetworkSpec, image_ch: int, num_classes: int) -> 
 def build_modules(spec: NetworkSpec, image_ch: int = 1, num_classes: int = 4,
                   encoder_dropout: Optional[float] = None,
                   decoder_dropout: Optional[float] = None,
-                  image_size: int = 192) -> nn.ModuleDict:
+                  image_size: int = 192, dtype: Optional[torch.dtype] = None
+                  ) -> nn.ModuleDict:
     """The module bundle {image_encoder, segmentation_decoder,
     [image_decoder], [shape_encoder, shape_decoder]} of a spec;
-    ``image_size`` is the side of the square crops UNETR's ViT is built for."""
+    ``image_size`` is the side of the square crops UNETR's ViT is built for.
+    ``dtype`` is every module's compute dtype (``layers.set_compute_dtype``;
+    None computes in float32); parameters and running statistics stay
+    float32."""
     r = spec.feature_reduce
     latent = 512 // r
     if spec.is_unet:
@@ -143,4 +149,4 @@ def build_modules(spec: NetworkSpec, image_ch: int = 1, num_classes: int = 4,
         modules["shape_decoder"] = Decoder(
             latent, out_ch=num_classes, feature_reduce=r, up_type="NN", norm="batch",
             dropout=decoder_dropout, last_act=None)
-    return modules
+    return set_compute_dtype(modules, dtype)

@@ -13,7 +13,9 @@ transposed-conv + residual-conv decoder over it.
   number of heads a forward computes is read from ``qkv``'s output width,
   so the same module runs a tensor-parallel shard of the heads.
 * LayerNorms are flax's: eps 1e-6 (torch's default is 1e-5). GELU is the
-  exact erf form. Attention is two matrix products and a softmax.
+  exact erf form. Attention is two matrix products and a softmax. Under a
+  bf16 compute dtype the products, the softmax and the residual adds run in
+  bf16 and the LayerNorms in float32, as the JAX package writes them.
 * Dropout: the ViT's five element-wise sites (position embedding,
   attention weights, attention output, GELU output, MLP output) are
   :class:`layers.ElementDropout`s, present only with a rate, on in "train"
@@ -53,17 +55,17 @@ def _lecun_normal_(w: torch.Tensor, fan_in: int) -> torch.Tensor:
         return nn.init.trunc_normal_(w, 0.0, std, -2.0 * std, 2.0 * std)
 
 
-def dense(in_features: int, out_features: int, bias: bool = True) -> nn.Linear:
-    """nn.Linear with flax Dense's init (lecun normal, zero bias)."""
-    lin = nn.Linear(in_features, out_features, bias=bias)
+def dense(in_features: int, out_features: int, bias: bool = True) -> layers.Linear:
+    """A linear map with flax Dense's init (lecun normal, zero bias)."""
+    lin = layers.Linear(in_features, out_features, bias=bias)
     _lecun_normal_(lin.weight, in_features)
     if bias:
         nn.init.zeros_(lin.bias)
     return lin
 
 
-def layer_norm(features: int) -> nn.LayerNorm:
-    return nn.LayerNorm(features, eps=LAYERNORM_EPS)
+def layer_norm(features: int) -> layers.LayerNorm:
+    return layers.LayerNorm(features, eps=LAYERNORM_EPS)
 
 
 def _dropout(rate: float) -> Optional[layers.ElementDropout]:
@@ -142,7 +144,7 @@ class ViT(nn.Module):
                  num_heads: int = 12, dropout_rate: float = 0.0):
         super().__init__()
         self.img_size, self.patch_size = img_size, patch_size
-        self.patch_embed = nn.Conv2d(in_ch, hidden_size, patch_size, stride=patch_size)
+        self.patch_embed = layers.Conv2d(in_ch, hidden_size, patch_size, stride=patch_size)
         _lecun_normal_(self.patch_embed.weight, in_ch * patch_size * patch_size)
         nn.init.zeros_(self.patch_embed.bias)
         n_patch = (img_size // patch_size) ** 2
@@ -160,7 +162,7 @@ class ViT(nn.Module):
             raise ValueError(f"ViT built for {self.img_size}^2 inputs "
                              f"({self.pos_embedding.shape[1]} tokens) got "
                              f"{x.shape[1]} tokens")
-        x = _drop(self.pos_drop, x + self.pos_embedding, mode)
+        x = _drop(self.pos_drop, x + self.pos_embedding.to(x.dtype), mode)
         hidden = []
         for i in range(self.num_layers):
             x = getattr(self, f"block{i}")(x, mode)

@@ -152,7 +152,9 @@ def perturb_latent_code(code: torch.Tensor, decode_fn: Callable, target: torch.T
         else:
             fn = channel_mask if method == "channel" else spatial_mask
             mask = fn(grad, **kw)
-            masked, mask = base * mask, mask.expand_as(code)
+            # in the code's dtype, as the JAX package casts every method's
+            # result (a soft mask is float32)
+            masked, mask = (base * mask).to(code.dtype), mask.to(code.dtype).expand_as(code)
         candidates.append((masked, mask))
     masked, mask = candidates[-1]
     switch = draws["switch"] if len(methods) > 1 else None

@@ -163,6 +163,12 @@ def cached_spreads(state: MaxStyleState, sig: torch.Tensor, mu: torch.Tensor,
     return dataclasses.replace(state, gamma_std=gamma_std, beta_std=beta_std)
 
 
+def _styling_float(x: torch.Tensor) -> torch.Tensor:
+    """x in float32 when it is half precision: the style statistics and the
+    mixing run at full precision (the JAX ops' cast under bf16 compute)."""
+    return x.float() if x.dtype in (torch.bfloat16, torch.float16) else x
+
+
 def is_noop(x: torch.Tensor, cfg: MaxStyleConfig) -> bool:
     b, _, h, w = x.shape
     return b <= 1 or h * w == 1 or (not cfg.mix_style and cfg.no_noise)
@@ -171,9 +177,12 @@ def is_noop(x: torch.Tensor, cfg: MaxStyleConfig) -> bool:
 def apply_maxstyle(x: torch.Tensor, params: MaxStyleParams, state: MaxStyleState,
                    cfg: MaxStyleConfig) -> Tuple[torch.Tensor, MaxStyleState]:
     """Forward pass of the op on x [B,C,H,W]; returns (out, state') where
-    state' carries the spreads cached on first application."""
+    state' carries the spreads cached on first application. Half-precision
+    activations are styled in float32 and cast back."""
     if is_noop(x, cfg):
         return x, state
+    in_dtype = x.dtype
+    x = _styling_float(x)
     mu, sig = instance_stats(x, cfg.eps)
     x_normed = (x - mu) / sig
     new_state = cached_spreads(state, sig, mu, _group_size(cfg, x.shape[0]))
@@ -190,7 +199,7 @@ def apply_maxstyle(x: torch.Tensor, params: MaxStyleParams, state: MaxStyleState
     else:
         x_aug = ((sig_mix + params.gamma_noise * new_state.gamma_std) * x_normed
                  + (mu_mix + params.beta_noise * new_state.beta_std))
-    return state.gate * x_aug + (1.0 - state.gate) * x, new_state
+    return (state.gate * x_aug + (1.0 - state.gate) * x).to(in_dtype), new_state
 
 
 # ---------------------------------------------------------------------------
@@ -245,10 +254,13 @@ def apply_mixstyle(x: torch.Tensor, cfg: MixStyleConfig,
     :func:`draw_mixstyle`: a per-call Bernoulli gate (gate_u <= p), instance
     statistics mixed with a permuted batch's (mix "random" or
     "crossdomain"), or perturbed by N(0,1) times their spread over the batch
-    (mix "gaussian", DSU). The gate is arithmetic, gate*out + (1-gate)*x."""
+    (mix "gaussian", DSU). The gate is arithmetic, gate*out + (1-gate)*x.
+    Half-precision activations are styled in float32 and cast back."""
     b = x.shape[0]
     if b <= 1:
         return x
+    in_dtype = x.dtype
+    x = _styling_float(x)
     gate = (draws["gate_u"] <= cfg.p).to(x.dtype)
     mu, sig = instance_stats(x, cfg.eps)
     x_normed = (x - mu) / sig
@@ -260,4 +272,4 @@ def apply_mixstyle(x: torch.Tensor, cfg: MixStyleConfig,
         mu_mix = mu * (1 - lmda) + mu[perm] * lmda
         sig_mix = sig * (1 - lmda) + sig[perm] * lmda
     out = x_normed * sig_mix + mu_mix
-    return gate * out + (1.0 - gate) * x
+    return (gate * out + (1.0 - gate) * x).to(in_dtype)

@@ -36,7 +36,8 @@ import torch
 from maxstyle_tpu_torch import kernels
 from maxstyle_tpu_torch.config import MaxStyleConfig
 from maxstyle_tpu_torch.ops.maxstyle import (MaxStyleParams, MaxStyleState,
-                                             _group_size, cached_spreads, is_noop)
+                                             _group_size, _styling_float, cached_spreads,
+                                             is_noop)
 
 
 def _on_cpu(*tensors: torch.Tensor) -> bool:
@@ -238,10 +239,12 @@ def apply_maxstyle_kernels(x: torch.Tensor, params: MaxStyleParams,
                            ) -> Tuple[torch.Tensor, MaxStyleState]:
     """Drop-in for ``ops.maxstyle.apply_maxstyle`` on the fused kernels, with
     the same (out, state') contract, first-application spread caching
-    included. x: [B,C,H,W]."""
+    included. x: [B,C,H,W]. The kernels take float32: half-precision
+    activations are cast to it before them and back after."""
     if is_noop(x, cfg):
         return x, state
-    x = x.contiguous()
+    in_dtype = x.dtype
+    x = _styling_float(x).contiguous()
     b, c = x.shape[:2]
     # stats of a detached input: no gradient ever reaches this kernel
     mu, sig = channel_moments(x.detach(), cfg.eps)
@@ -256,4 +259,4 @@ def apply_maxstyle_kernels(x: torch.Tensor, params: MaxStyleParams,
         mu, sig, state.perm,
         new_state.gamma_std[:, :, 0, 0], new_state.beta_std[:, :, 0, 0],
         state.gate.reshape(1, 1))
-    return out, new_state
+    return out.to(in_dtype), new_state

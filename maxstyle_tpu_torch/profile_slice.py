@@ -18,7 +18,8 @@ times two more calls untraced, then traces one more call with
 memory, the steps a second of the untraced calls, the wall time of the
 traced call, the summed device time of all kernels and the device's busy
 share (device time over wall time), the device launches a step, the
-launches and device time per step of the port's CUDA kernels, the kernels
+launches and device time per step of the port's CUDA kernels and of the
+dtype casts (``aten::_to_copy``: the bf16 policy's), the kernels
 with the most device time, those with the most launches, and the
 operators with the most host time.
 
@@ -52,6 +53,14 @@ PORT_KERNELS = {name: f"{name}_kernel" for name in
 
 def _device_us(evt) -> float:
     for attr in ("self_device_time_total", "self_cuda_time_total"):
+        if hasattr(evt, attr):
+            return float(getattr(evt, attr))
+    return 0.0
+
+
+def _device_total_us(evt) -> float:
+    """An operator's device time with its children's (the kernels it ran)."""
+    for attr in ("device_time_total", "cuda_time_total"):
         if hasattr(evt, attr):
             return float(getattr(evt, attr))
     return 0.0
@@ -160,6 +169,12 @@ def profile_workload(workload: str, k_inner: int, top: int) -> None:
         calls = sum(e.count for e in evts)
         print(f"profile: port kernel {name}: {calls / steps:.1f} launches/step, "
               f"{us / 1e3 / steps:.4f} ms/step device")
+    # dtype conversions (.to / .float(), forward and backward): the casts of
+    # the bf16 policy around the convolutions, norms, style ops and losses
+    casts = [e for e in prof.key_averages() if e.key == "aten::_to_copy"]
+    print(f"profile: dtype casts (aten::_to_copy) {sum(e.count for e in casts) / steps:.1f} "
+          f"calls/step, {sum(_device_total_us(e) for e in casts) / 1e3 / steps:.4f} "
+          f"ms/step device")
     kernels.sort(key=_device_us, reverse=True)
     for e in kernels[:top]:
         print(f"profile: {_device_us(e) / 1e3 / steps:9.4f} ms/step "

@@ -44,6 +44,17 @@ from maxstyle_tpu_torch.ops.maxstyle_kernels import apply_maxstyle_kernels
 from maxstyle_tpu_torch.utils.ema import ScheduleLR, make_lr_schedule
 
 
+def resolve_compute_dtype(name: str) -> torch.dtype:
+    """``learning.compute_dtype`` as the JAX solver reads it: "bfloat16" and
+    "bf16" compute in bf16; "float32", "f32" and "auto" in float32 ("auto"
+    picks bf16 only on a TPU)."""
+    if name in ("bfloat16", "bf16"):
+        return torch.bfloat16
+    if name in ("float32", "f32", "auto"):
+        return torch.float32
+    raise ValueError(f"compute_dtype {name}")
+
+
 def resolve_device(device=None) -> torch.device:
     """The device of an entry point: the GPU unless the caller names one.
     Without a GPU the caller has to ask for the CPU explicitly."""
@@ -151,8 +162,7 @@ class TripletSegmentationSolver:
     """Static configuration and the training procedures over ``nets``."""
 
     def __init__(self, config: ExperimentConfig, image_ch: int = 1, device=None):
-        if config.learning.compute_dtype not in ("auto", "float32", "f32"):
-            raise NotImplementedError("only float32 compute is ported; bf16 is queued")
+        self.compute_dtype = resolve_compute_dtype(config.learning.compute_dtype)
         self.config = config
         self.image_ch = image_ch
         self.device = resolve_device(device)
@@ -176,7 +186,9 @@ class TripletSegmentationSolver:
                                  num_classes=self.num_classes,
                                  encoder_dropout=L.encoder_dropout,
                                  decoder_dropout=L.decoder_dropout,
-                                 image_size=self.config.crop_hw[0])
+                                 image_size=self.config.crop_hw[0],
+                                 dtype=(None if self.compute_dtype == torch.float32
+                                        else self.compute_dtype))
         return nets.to(self.device)
 
     def init_state(self, seed: int = 0, state_dicts: Optional[Dict] = None,
@@ -538,8 +550,9 @@ class TripletSegmentationSolver:
     def predict(self, nets, image, *, softmax: bool = False, n_iter: int = 1,
                 normalize_input: bool = True):
         """Eval-mode forward of image [N,H,W,C] -> logits (or probabilities)
-        [N,H,W,num_classes]: the segmentation decoder's, or with an STN and
-        ``n_iter`` > 1 its refinement (logits not detached first)."""
+        [N,H,W,num_classes] in the compute dtype: the segmentation decoder's,
+        or with an STN and ``n_iter`` > 1 its refinement (logits not
+        detached first)."""
         x = image.permute(0, 3, 1, 2).float()
         if normalize_input:
             x = intensity_norm_fn(self.config.data.intensity_norm_type)(x)

@@ -192,3 +192,32 @@ def test_slice_nine_modules_are_walked_and_their_entry_points_need_a_gpu_or_cpu_
         DeviceDataset.from_slice_dataset(ds)
     assert not os.path.exists(out)
     assert DeviceDataset.from_slice_dataset(ds, device="cpu").images.device.type == "cpu"
+
+
+def test_slice_twelve_modules_are_walked_and_their_workloads_need_a_gpu_or_cpu_asked():
+    """The loss library's new modules import neither JAX, the JAX package
+    nor the host-layer libraries; the bf16 and NGF workloads run on the GPU
+    unless the CPU is asked for."""
+    import pkgutil
+
+    import maxstyle_tpu_torch
+    from maxstyle_tpu_torch.flagship import WORKLOADS
+    new = ("maxstyle_tpu_torch.losses_extra", "maxstyle_tpu_torch.ops.mixup",
+           "maxstyle_tpu_torch.ops.perceptual")
+    names = {m.name for m in pkgutil.walk_packages(maxstyle_tpu_torch.__path__,
+                                                   "maxstyle_tpu_torch.")}
+    assert set(new) <= names
+    code = (f"import sys, importlib\nfor m in {new!r}:\n    importlib.import_module(m)\n"
+            "bad = sorted(n for n in sys.modules if n.split('.')[0] in "
+            f"('jax', 'maxstyle_tpu') + {ABSENT_ON_THE_GPU_MACHINE!r})\n"
+            "assert not bad, bad\n")
+    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True,
+                       timeout=300)
+    assert r.returncode == 0, r.stdout + r.stderr
+    for name in ("headline_bf16", "headline_ngf"):
+        if not torch.cuda.is_available():
+            with pytest.raises(RuntimeError, match="device='cpu'"):
+                WORKLOADS[name]()
+        assert WORKLOADS[name](device="cpu").device.type == "cpu"
+    assert WORKLOADS["headline_bf16"](device="cpu").compute_dtype == torch.bfloat16
+    assert WORKLOADS["headline_ngf"](device="cpu").rec_loss_type == "ngf"

@@ -155,8 +155,9 @@ def test_losses_and_intensity_ops_match():
                        (tint.z_score_intensity, jint.z_score_intensity),
                        (tint.instance_norm, jint.instance_norm)):
         close(t_fn(timg), np.asarray(j_fn(img)).transpose(0, 3, 1, 2))
+    close(tlosses.basic_loss_fn(tl, tlab, "dice"), jlosses.basic_loss_fn(logits, label, "dice"))
     with pytest.raises(NotImplementedError):
-        tlosses.basic_loss_fn(tl, tlab, "dice")
+        tlosses.basic_loss_fn(tl, tlab, "hinge")
 
 
 @pytest.mark.parametrize("nt", [
