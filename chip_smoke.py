@@ -16,7 +16,9 @@ Phases, each printing its own lines; any failure exits nonzero:
              input, bit for bit; beside them the launch floor, the time of
              fill_ on a one-element tensor; the style map, whose kernel folds
              its own coefficients, bit-equal in scale and shift and over two
-             calls, also over every branch of the map), the bilinear warp
+             calls, also over every branch of the map and at a row offset:
+             rows 20-39 of a global batch of 40, as a rank of a data
+             group reads them), the bilinear warp
              (N=10, 224 -> 192; its composed entry, the main path's, bit
              for bit at the policy's draws with the elastic gate on and
              off, with no elastic branch and at a matrix across both rims,
@@ -139,10 +141,25 @@ Phases, each printing its own lines; any failure exits nonzero:
              divergence at scales 0-2, ngf_loss, the losses_extra functions,
              mixup and in/outpainting with injected draws, the VGG
              perceptual loss on a seeded small-plan VGG), each held against
-             the same call on a CPU copy at relative 1e-4, TF32 off.
+             the same call on a CPU copy at relative 1e-4, TF32 off;
+19. data_parallel — data parallelism (``parallel/mesh.py``): the training
+             CLI on the tree of phases 9-11 at full width (one epoch with
+             --debug) twice as a plain process and once under
+             ``python -m torch.distributed.run --nproc_per_node=1 ...
+             --data_parallel`` (NCCL), whose epoch losses and final weights
+             must be as close to the first plain run's as the second plain
+             run's are (bit-equal if those are, else within 4x); then a
+             world of 2 over gloo with both ranks on the one card: one fused
+             headline step at full width (effective batch 20, 224 -> 192,
+             n_iter 5, the inner Adam at lr 0.01) with injected draws, held
+             against the single process on the global batch at the CPU
+             test's bars (losses rtol 2e-4, weights within 2.1 lr, module
+             update cosines > 0.95, running statistics rtol 1e-4 / atol
+             1e-6), exactly 21/21/15/1 launches a step on each rank; and
+             steps/s of both worlds beside the plain step's (no claim).
 
 The family phases 12-15 (four network families) print steps/s and peak
-memory beside the card's name and power limit. The tree of phases 9-11 is
+memory beside the card's name and power limit. The tree of phases 9-11 and 19 is
 written once under build/ and deleted at the end. Each of the phases from 5 on is a path: every launch count is set to 0 just
 before it and read just after. Before the last line it prints one JSON object with
 every kernel's numbers; the last line is {"ok": true, "device": {...}}.
@@ -207,6 +224,8 @@ PER_STEP["basic_solver"] = {}
 # the bf16 compute policy and the NGF reconstruction loss on the headline's
 # config file (flagship.WORKLOADS "headline_bf16", "headline_ngf")
 PER_STEP["slice_bf16"] = PER_STEP["slice_ngf"] = PER_STEP["slice"]
+# each rank of the world of 2 launches a single-device step's kernels
+PER_STEP["data_parallel"] = PER_STEP["slice"]
 BASIC_ZOO = ("UNet_16", "FCN_16", "ResUNet_16")
 BASIC_STEPS = 8
 # which path's run each kernel's "launches" is read from
@@ -788,6 +807,7 @@ def phase_kernels():
         ok &= _style_rows(rows, cell, shapes, eps)
     ok &= _style_ragged(rows, eps)
     ok &= _apply_branches(rows)
+    ok &= _apply_row_offset(rows)
     floor = launch_floor_ms()
     print(f"launch floor: fill_ of a one-element tensor {floor:.5f} ms a launch "
           f"(CUDA-graph replay)")
@@ -1925,6 +1945,358 @@ def phase_reference_import(smi: str, tmp: str):
     return total
 
 
+# ---------------------------------------------------------------------------
+# data parallelism (phase 19)
+# ---------------------------------------------------------------------------
+
+# the world of 2: the headline config at full width with the inner loop's
+# Adam at lr 0.01, as the CPU test holds it (tests/test_torch_port_data_parallel.py:
+# at lr 0.1 the sign-like inner steps move the hard loss past the loss bar);
+# the raw batch, the bars and the steps timed after the checked one
+DP_RAW, DP_PAD = 10, 224
+DP_STYLE_LR = 0.01
+DP_TIMED_STEPS = 3
+DP_JOIN_TIMEOUT = 240
+
+
+def _apply_row_offset(rows):
+    """The apply kernel at a non-zero first row (data parallelism: x holds
+    rows [row0, row0 + b) of a global batch of 2b, whose moments, permutation
+    and [2b, C] spreads the kernel reads) against its plain version at the
+    headline's hook shapes: scale, shift, mu[perm] and sig[perm] bit-equal,
+    out within 1e-6 of max|out|, bit-equal over two calls; timed."""
+    import torch
+    from maxstyle_tpu_torch.bench_style import STYLE_SHAPES
+    from maxstyle_tpu_torch.config import MaxStyleConfig
+    from maxstyle_tpu_torch.ops import maxstyle_kernels as mk
+    from maxstyle_tpu_torch.timing import copies_beyond_l2, cuda_ms
+
+    ok, checks = True, []
+    cfg = MaxStyleConfig()
+    for si, shape in enumerate(STYLE_SHAPES["headline"]):
+        b, c = shape[:2]
+        n_el = math.prod(shape)
+        g = torch.Generator(device="cuda").manual_seed(60 + si)
+        copies = copies_beyond_l2(n_el * 4)
+        xs = [torch.randn(shape, generator=g, device="cuda") * 2 + 1 for _ in range(copies)]
+        for spread_rows in (1, 2 * b):
+            lmda, gn, bn = _style_inputs(shape, g, 1.0, 1)[:3]
+            mu, sig = mk.channel_moments_plain(
+                torch.randn((2 * b,) + tuple(shape[1:]), generator=g, device="cuda") * 2 + 1,
+                1e-6)
+            perm = torch.roll(torch.randperm(2 * b, generator=g, device="cuda"), 1)
+            gstd, bstd = (torch.rand((spread_rows, c), generator=g, device="cuda")
+                          for _ in range(2))
+            args = (lmda, gn, bn, mu, sig, perm, gstd, bstd,
+                    torch.ones((1, 1), device="cuda"), b)
+            k, p = mk.style_apply(cfg, xs[0], *args), mk.style_apply_plain(cfg, xs[0], *args)
+            same, err = _apply_agrees(k, p, mk.style_apply(cfg, xs[0], *args))
+            checks.append(dict(
+                shape=list(shape), global_rows=2 * b, row0=b, spread_rows=spread_rows,
+                bit_equal=same, rel_err=err, tol=1e-6,
+                ms=cuda_ms(lambda i: mk.style_apply(cfg, xs[i], *args), copies),
+                plain_ms=cuda_ms(lambda i: mk.style_apply_plain(cfg, xs[i], *args), copies)))
+            ok &= same and err <= 1e-6
+        del xs
+    rows["maxstyle_apply"]["row_offset"] = checks
+    for ch in checks:
+        print(f"kernel maxstyle_apply at row offset {ch['row0']} of {ch['global_rows']} rows "
+              f"{ch['shape']} spreads [{ch['spread_rows']},C]: bit-equal {ch['bit_equal']}, "
+              f"out err {ch['rel_err']:.3e} (tol 1e-6), ms {ch['ms']:.5f} plain "
+              f"{ch['plain_ms']:.5f}")
+    return ok
+
+
+def _dp_solver():
+    import dataclasses
+
+    from maxstyle_tpu_torch.flagship import config_solver, flagship_solver
+    cfg = flagship_solver(hw=192, batch=2 * DP_RAW, device="cuda").config
+    cfg = dataclasses.replace(cfg, max_style=dataclasses.replace(cfg.max_style,
+                                                                 lr=DP_STYLE_LR))
+    return config_solver(cfg, "cuda")
+
+
+def _dp_step_inputs():
+    """The world of 2's step on the card: the raw batch, the augmentation's
+    draws and the single process's overrides ([aug | orig] order): the
+    noisy input and the style tensors with the gate on."""
+    import dataclasses
+
+    import torch
+    from maxstyle_tpu_torch.data import augment as A
+    from maxstyle_tpu_torch.flagship import workload_policy
+    from maxstyle_tpu_torch.models.encoder_decoder import decoder_style_channels
+    from maxstyle_tpu_torch.ops import maxstyle as ms
+
+    solver = _dp_solver()
+    cfg = solver.config
+    policy = workload_policy(cfg)
+    g = torch.Generator(device="cuda").manual_seed(90)
+    raw = {"image": torch.rand((DP_RAW, DP_PAD, DP_PAD), generator=g, device="cuda"),
+           "label": torch.randint(0, 4, (DP_RAW, DP_PAD, DP_PAD), generator=g, device="cuda",
+                                  dtype=torch.int32)}
+    aug = A.draw_aug(g, policy, DP_RAW)
+    with torch.no_grad():
+        img, _ = A.augment_batch_inner(g, raw["image"], raw["label"], policy, draws=aug)
+        oi, _ = A.norm_batch(raw["image"], raw["label"], cfg.crop_hw)
+    clean = torch.cat([img, oi])
+    noisy = clean + 0.05 * torch.randn(clean.shape, generator=g, device="cuda")
+    chans = decoder_style_channels(solver.spec.feature_reduce, 1)
+    params, state = {}, {}
+    for idx in cfg.max_style.decoder_layers_indexes:
+        params[idx], st = ms.init_maxstyle(g, 2 * DP_RAW, chans[idx], cfg.max_style)
+        state[idx] = dataclasses.replace(st, gate=torch.ones((), device="cuda"))
+    return {"raw": raw, "aug_draws": aug,
+            "overrides": {"image_n": torch.clamp(noisy, clean.min(), clean.max()),
+                          "style_init": (params, state)}}
+
+
+def _dp_order(world):
+    """The single process's row at each row of the world's rank-major
+    global batch ([aug_r | orig_r] a rank against [aug | orig])."""
+    n = DP_RAW // world
+    return [j for r in range(world)
+            for j in list(range(r * n, (r + 1) * n)) + list(range(DP_RAW + r * n,
+                                                                  DP_RAW + (r + 1) * n))]
+
+
+def _dp_overrides(ov, world):
+    """The overrides in the world's order, the permutations conjugated."""
+    import dataclasses
+
+    import torch
+    from maxstyle_tpu_torch.ops import maxstyle as ms
+
+    sigma = torch.tensor(_dp_order(world), device="cuda")
+    inv = torch.empty_like(sigma)
+    inv[sigma] = torch.arange(len(sigma), device="cuda")
+    params, state = ov["style_init"]
+    return {"image_n": ov["image_n"][sigma],
+            "style_init": ({i: ms.MaxStyleParams(*(t[sigma] for t in p.tensors()))
+                            for i, p in params.items()},
+                           {i: dataclasses.replace(st, perm=inv[st.perm[sigma]])
+                            for i, st in state.items()})}
+
+
+def _dp_run(inputs, grid=None, timed=0):
+    """One fused step of the world-2 config on its inputs (sharded over
+    ``grid``), its launches, then ``timed`` undrawn steps timed. Returns
+    (metrics, module state, launches, steps/s or None)."""
+    import torch
+    from maxstyle_tpu_torch import kernels
+    from maxstyle_tpu_torch.flagship import workload_policy
+    from maxstyle_tpu_torch.parallel import mesh
+    from maxstyle_tpu_torch.train_step import make_fused_train_step
+
+    solver = _dp_solver()
+    state = solver.init_state(seed=1)
+    step = mesh.shard_train_step(
+        make_fused_train_step(solver, workload_policy(solver.config), keep_orig=True), grid)
+    raw = mesh.shard_batch(inputs["raw"], grid)
+    ov = dict(inputs["overrides"], aug_draws=mesh.shard_batch(inputs["aug_draws"], grid))
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    kernels.reset_launches()
+    state, m = step(state, raw, gen, overrides=ov)
+    torch.cuda.synchronize()
+    launches = dict(kernels.LAUNCHES)
+    metrics = {k: float(v) for k, v in m.items()}
+    sd = {n: {k: v.detach().cpu().clone() for k, v in mod.state_dict().items()}
+          for n, mod in state.modules.items()}
+    rate = None
+    if timed:
+        mesh.barrier(grid)
+        t0 = time.perf_counter()
+        for _ in range(timed):
+            state, m = step(state, raw, gen)
+        torch.cuda.synchronize()
+        mesh.barrier(grid)
+        rate = timed / (time.perf_counter() - t0)
+    return metrics, sd, launches, rate
+
+
+def _dp_worker(rank, world, store, inputs_path, out_dir):
+    """A rank of the world of 2 on the one card (gloo carries the CUDA
+    tensors of every all-reduce and broadcast)."""
+    import os
+
+    import torch
+    import torch.distributed as dist
+    from maxstyle_tpu_torch.parallel import mesh
+
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"file://{store}", world_size=world, rank=rank)
+    try:
+        grid = mesh.make_mesh()
+        inputs = torch.load(inputs_path, map_location="cuda:0", weights_only=False)
+        inputs["overrides"] = _dp_overrides(inputs["overrides"], world)
+        out = _dp_run(inputs, grid, timed=DP_TIMED_STEPS)
+        torch.save(out, os.path.join(out_dir, f"rank{rank}.pt"))
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+
+
+def _state_distance(a, b):
+    """The largest absolute difference of two {module: state dict}s'
+    floating tensors."""
+    return max(float((a[n][k].double() - b[n][k].double()).abs().max())
+               for n in a for k in a[n] if a[n][k].is_floating_point())
+
+
+def _dp_world_one(smi: str, tmp: str):
+    """The training CLI at full width (the train_cli phase's config, one
+    epoch with --debug) run twice as a plain process and once under
+    ``torch.distributed.run --nproc_per_node=1 ... --data_parallel`` (NCCL):
+    the data-parallel run's epoch losses and final weights must be as close
+    to the first plain run's as the second plain run's are (bit-equal if
+    those are, else within 4x their distance). Returns the three runs'
+    steps/s (the epoch's steps over its printed wall time)."""
+    import os
+    import subprocess
+
+    import torch
+    from maxstyle_tpu_torch.flagship import config_solver
+    from maxstyle_tpu_torch.utils import checkpoint as ckpt
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    cfg_path, cfg = _acdc_config(tmp, os.path.join(tmp, "dp1"), {"learning": {"n_epochs": 1}})
+    base = ["--json_config_path", cfg_path, "--data_setting", "10", "--cval", "0",
+            "--seed", "1", "--debug"]
+    runs = {"plain_a": [sys.executable, "-m", "maxstyle_tpu_torch.train"],
+            "plain_b": [sys.executable, "-m", "maxstyle_tpu_torch.train"],
+            "world_1": [sys.executable, "-m", "torch.distributed.run", "--standalone",
+                        "--nproc_per_node=1", "-m", "maxstyle_tpu_torch.train",
+                        "--data_parallel"]}
+    results = {}
+    for name, cmd in runs.items():
+        save_dir = os.path.join(tmp, "dp1", name)
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd + base + ["--save_dir", save_dir], cwd=root,
+                              capture_output=True, text=True, timeout=300)
+        wall = time.perf_counter() - t0
+        if proc.returncode != 0:
+            fail(f"data_parallel world 1: {name} exited {proc.returncode}:\n"
+                 f"{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
+        epoch = re.findall(r"epoch 0: val mIoU \S+ acc \S+ \(([0-9.]+)s\)", proc.stdout)
+        run_dir = os.path.join(save_dir, "train_ACDC_10_n_cls_4",
+                               os.path.splitext(os.path.basename(cfg_path))[0], "0")
+        with open(os.path.join(run_dir, "log", f"{os.path.basename(cfg_path)[:-5]}_0.json")) as f:
+            history = json.load(f)
+        state, _ = ckpt.load_checkpoint(os.path.join(run_dir, "model"), "epoch_0",
+                                        config_solver(cfg, "cuda").init_state(0))
+        results[name] = dict(history=history[0], state={n: {k: v.detach().cpu() for k, v in
+                                                            m.state_dict().items()}
+                                                        for n, m in state.modules.items()},
+                             steps=state.step, epoch_s=float(epoch[0]) if epoch else None,
+                             wall=wall)
+    a = results["plain_a"]
+    dist_plain = _state_distance(a["state"], results["plain_b"]["state"])
+    dist_dp = _state_distance(a["state"], results["world_1"]["state"])
+    keys = [k for k in a["history"] if k.startswith("loss/")]
+    loss_plain = max(abs(results["plain_b"]["history"][k] - a["history"][k]) for k in keys)
+    loss_dp = max(abs(results["world_1"]["history"][k] - a["history"][k]) for k in keys)
+    steps = a["steps"]
+    rates = {n: (steps / r["epoch_s"] if r["epoch_s"] else None) for n, r in results.items()}
+    print(f"data_parallel world 1 (torch.distributed.run, NCCL) vs plain CLI, {steps} steps "
+          f"at effective batch {cfg.learning.batch_size} @{cfg.crop_hw[0]}^2 (n_iter "
+          f"{cfg.max_style.n_iter}): weights max diff plain-plain {dist_plain:.3e}, "
+          f"plain-world1 {dist_dp:.3e}; epoch losses max diff plain-plain {loss_plain:.3e}, "
+          f"plain-world1 {loss_dp:.3e}; steps/s (epoch 0, first step included) "
+          f"{json.dumps(rates)}; process wall s "
+          f"{json.dumps({n: round(r['wall'], 1) for n, r in results.items()})}; on {smi}")
+    if any(r["steps"] != steps for r in results.values()):
+        fail(f"data_parallel world 1: step counts {[r['steps'] for r in results.values()]}")
+    if dist_plain == 0.0 and loss_plain == 0.0:
+        if dist_dp != 0.0 or loss_dp != 0.0:
+            fail("data_parallel world 1: two plain runs are bit-equal, the world of 1 is not")
+    elif dist_dp > 4 * dist_plain or loss_dp > 4 * loss_plain:
+        fail("data_parallel world 1: further from the plain run than 4x two plain runs")
+    return rates
+
+
+def phase_data_parallel(smi: str, tmp: str):
+    """Phase 19: the world of 1 under torch.distributed.run (_dp_world_one),
+    then the world of 2 over gloo with both ranks on the one card: one
+    fused step (the headline at full width, effective batch 20, 224 ->
+    192, n_iter 5, the inner lr 0.01), its draws injected, held against the
+    single process's step on the global batch at the CPU test's bars
+    (losses rtol 2e-4, weights within 2.1 lr, module update cosines
+    > 0.95, running statistics rtol 1e-4 / atol 1e-6), exactly 21/21/15/1
+    launches on each rank, then steps/s of both worlds beside the plain
+    step's. Returns rank 0's launches of the checked step."""
+    import os
+
+    import torch
+
+    t_phase = time.perf_counter()
+    rates = _dp_world_one(smi, tmp)
+
+    inputs = _dp_step_inputs()
+    single_m, single_sd, single_l, plain_rate = _dp_run(inputs, timed=DP_TIMED_STEPS)
+    d = os.path.join(tmp, "dp2")
+    os.makedirs(d)
+    torch.save(inputs, os.path.join(d, "inputs.pt"))
+    ctx = torch.multiprocessing.get_context("spawn")
+    procs = [ctx.Process(target=_dp_worker, args=(r, 2, os.path.join(d, "store"),
+                                                  os.path.join(d, "inputs.pt"), d))
+             for r in range(2)]
+    for p in procs:
+        p.start()
+    for p in procs:
+        p.join(DP_JOIN_TIMEOUT)
+    hung = [p for p in procs if p.is_alive()]
+    for p in hung:
+        p.kill()
+        p.join()
+    if hung or any(p.exitcode != 0 for p in procs):
+        fail(f"data_parallel world 2 (gloo on the card): exit codes "
+             f"{[p.exitcode for p in procs]}, {len(hung)} hung")
+    ranks = [torch.load(os.path.join(d, f"rank{r}.pt"), weights_only=False) for r in range(2)]
+
+    lr = 1e-4
+    loss_err = max(abs(r[0][k] - v) / max(abs(v), 1e-30) for r in ranks
+                   for k, v in single_m.items() if v != 0.0)
+    w_err, cos_min, stat_err = 0.0, 1.0, 0.0
+    w0 = {n: {k: v.cpu() for k, v in m.state_dict().items()}
+          for n, m in _dp_solver().build_modules(seed=1).items()}
+    for name, sd in single_sd.items():
+        a, b = [], []
+        for key, want in sd.items():
+            got = ranks[0][1][name][key]
+            if not torch.equal(got, ranks[1][1][name][key]):
+                fail(f"data_parallel world 2: the ranks' {name}.{key} differ")
+            if key.endswith(("running_mean", "running_var")):
+                stat_err = max(stat_err, float(((got - want).abs()
+                                                / (1e-6 + 1e-4 * want.abs())).max()))
+                continue
+            if not want.is_floating_point():
+                continue
+            w_err = max(w_err, float((got - want).abs().max()))
+            a.append((got - w0[name][key]).double().flatten())
+            b.append((want - w0[name][key]).double().flatten())
+        a, b = torch.cat(a), torch.cat(b)
+        cos_min = min(cos_min, float(a @ b / (a.norm() * b.norm())))
+    per_rank = [r[2] for r in ranks]
+    print(f"data_parallel world 2 (gloo, 2 ranks on the card) vs the single process on the "
+          f"global batch: losses max rel err {loss_err:.3e} (rtol 2e-4), weights max diff "
+          f"{w_err:.3e} (bar {2.1 * lr + 1e-6:.3e}), module update cosine min {cos_min:.5f} "
+          f"(> 0.95), running stats worst {stat_err:.3f} of (atol 1e-6 + rtol 1e-4); "
+          f"launches a rank {json.dumps(per_rank)}")
+    print(f"data_parallel steps/s (no claim; {DP_TIMED_STEPS} undrawn fused steps after the "
+          f"checked one, effective batch {2 * DP_RAW} @192^2): plain {plain_rate:.4f}, "
+          f"world 2 (gloo, one card) {ranks[0][3]:.4f}; CLI epoch 0 {json.dumps(rates)}; "
+          f"on {smi}; phase {time.perf_counter() - t_phase:.1f} s")
+    if loss_err > 2e-4 or w_err > 2.1 * lr + 1e-6 or cos_min <= 0.95 or stat_err > 1.0:
+        fail("data_parallel world 2 disagrees with the single process on the global batch")
+    for r, launches in enumerate(per_rank):
+        for name in KERNELS:
+            if launches[name] != PER_STEP["data_parallel"].get(name, 0):
+                fail(f"data_parallel world 2: rank {r} launched {name} {launches[name]} "
+                     f"times a step, expected {PER_STEP['data_parallel'].get(name, 0)}")
+    return per_rank[0]
+
+
 def main():
     t_start = time.perf_counter()
     try:
@@ -1966,6 +2338,7 @@ def main():
                                                                     val_pids)
         paths["device_resident"] = phase_device_resident(smi, tmp, flag_rate, flag_syncs)
         paths["reference_import"] = phase_reference_import(smi, tmp)
+        paths["data_parallel"] = phase_data_parallel(smi, tmp)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     paths.update(phase_families(smi))

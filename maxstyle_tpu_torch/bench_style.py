@@ -231,10 +231,12 @@ def main() -> None:
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("bench_style needs a GPU")
-    print(f"bench_style: package {maxstyle_tpu_torch.__file__} on {card()}")
-    for name in args.rows.split(","):
-        ROWS[name]()
-    print(json.dumps({"call": "launch_floor", "ms": launch_floor_ms()}))
+    from maxstyle_tpu_torch.utils.gpulock import chip_lock
+    with chip_lock("bench_style"):
+        print(f"bench_style: package {maxstyle_tpu_torch.__file__} on {card()}")
+        for name in args.rows.split(","):
+            ROWS[name]()
+        print(json.dumps({"call": "launch_floor", "ms": launch_floor_ms()}))
 
 
 if __name__ == "__main__":

@@ -5,7 +5,9 @@
 //   ms_moments     (maxstyle_stats_kernel) -> _stats_kernel (launched by _batched_stats),
 //                                             finished as at maxstyle_pallas.py:266-270
 //   ms_style_apply (maxstyle_apply_kernel) -> _coefficients and _apply_kernel
-//                                             (launched by _batched_apply)
+//                                             (launched by _batched_apply); under data
+//                                             parallelism it reads the global moments at
+//                                             the rank's first global row
 //   ms_bwd         (maxstyle_bwd_kernel)   -> _bwd_kernel   (launched by _batched_bwd)
 //
 // Layout: x is NCHW float32, so each (b, c) plane of HW values is contiguous.
@@ -226,35 +228,40 @@ maxstyle_stats_kernel(const float* __restrict__ x, float* __restrict__ mu,
   }
 }
 
-// The inputs of the style map (all [B, C] unless said), as _FusedStyle
-// receives them.
+// The inputs of the style map, as _FusedStyle receives them. x holds rows
+// [row0, row0 + B) of a global batch of G rows (G = B, row0 = 0 on one
+// device): lmda, gn and bn are the B local rows; mu, sig, perm and [G, C]
+// spreads are global, so a row's partner may be another rank's row.
 struct StyleArgs {
   const float* lmda;      // [B]
-  const float* gn;        // gamma noise
-  const float* bn;        // beta noise
-  const float* mu;
-  const float* sig;
-  const long long* perm;  // [B]
-  const float* gstd;      // spreads: [1, C] (spread_stride 0) or [B, C] (stride C)
+  const float* gn;        // gamma noise [B, C]
+  const float* bn;        // beta noise [B, C]
+  const float* mu;        // [G, C]
+  const float* sig;       // [G, C]
+  const long long* perm;  // [G], global rows
+  const float* gstd;      // spreads: [1, C] (spread_stride 0) or [G, C] (stride C)
   const float* bstd;
   const float* gate;      // [1]
   float* coefs;           // out: [4, B, C] = scale, shift, mu[perm], sig[perm]
   int spread_stride;
-  int planes;
+  int planes;             // B * C
   int channels;
+  int row0;
   int mix_style;
   int no_noise;
 };
 
-// (scale, shift) of plane p = b * C + c, in the order of _coefficients
+// (scale, shift) of local plane p = b * C + c, in the order of _coefficients
 // (ops/maxstyle_kernels.py): every step rounds on its own, so scale and
 // shift are bit-equal to the plain torch ops on the same card. `first`:
 // also write them (and the permuted moments) for the backward pass.
 __device__ __forceinline__ float2 style_coefficients(const StyleArgs& a, int p, bool first) {
   const int b = p / a.channels;
   const int c = p - b * a.channels;
-  const int q = static_cast<int>(a.perm[b]) * a.channels + c;
-  const float mu = a.mu[p], sig = a.sig[p], mu2 = a.mu[q], sig2 = a.sig[q];
+  const int row = a.row0 + b;  // the plane's global row
+  const int own = row * a.channels + c;
+  const int q = static_cast<int>(a.perm[row]) * a.channels + c;
+  const float mu = a.mu[own], sig = a.sig[own], mu2 = a.mu[q], sig2 = a.sig[q];
   float sig_mix = sig, mu_mix = mu;
   if (a.mix_style) {
     const float lm = fminf(fmaxf(a.lmda[b], 0.0f), 1.0f);
@@ -267,7 +274,7 @@ __device__ __forceinline__ float2 style_coefficients(const StyleArgs& a, int p, 
     scale = __fdiv_rn(sig_mix, sig);
     shift = __fsub_rn(mu_mix, __fmul_rn(mu, scale));
   } else {
-    const int s = b * a.spread_stride + c;
+    const int s = row * a.spread_stride + c;
     scale = __fdiv_rn(__fadd_rn(sig_mix, __fmul_rn(a.gn[p], a.gstd[s])), sig);
     shift = __fsub_rn(__fadd_rn(mu_mix, __fmul_rn(a.bn[p], a.bstd[s])), __fmul_rn(mu, scale));
   }
@@ -443,20 +450,22 @@ int ms_moments(const void* x, void* mu, void* sig, int planes, int hw, int k, in
 }
 
 // out[p, i] = x[p, i] * scale[p] + shift[p] with (scale, shift) folded
-// from the style inputs (StyleArgs); coefs ([4, planes]) receives scale,
-// shift, mu[perm] and sig[perm].
+// from the style inputs (StyleArgs; x's rows start at global row row0);
+// coefs ([4, planes]) receives scale, shift, mu[perm] and sig[perm].
 int ms_style_apply(const void* x, void* out, const void* lmda, const void* gn, const void* bn,
                    const void* mu, const void* sig, const void* perm, const void* gstd,
                    const void* bstd, int spread_stride, const void* gate, void* coefs,
-                   int planes, int hw, int channels, int mix_style, int no_noise, void* stream) {
-  if (planes <= 0 || planes > 65535 || hw <= 0 || channels <= 0 || planes % channels != 0)
+                   int planes, int hw, int channels, int row0, int mix_style, int no_noise,
+                   void* stream) {
+  if (planes <= 0 || planes > 65535 || hw <= 0 || channels <= 0 || planes % channels != 0 ||
+      row0 < 0)
     return static_cast<int>(cudaErrorInvalidValue);
   const StyleArgs a = {static_cast<const float*>(lmda), static_cast<const float*>(gn),
                        static_cast<const float*>(bn), static_cast<const float*>(mu),
                        static_cast<const float*>(sig), static_cast<const long long*>(perm),
                        static_cast<const float*>(gstd), static_cast<const float*>(bstd),
                        static_cast<const float*>(gate), static_cast<float*>(coefs),
-                       spread_stride, planes, channels, mix_style, no_noise};
+                       spread_stride, planes, channels, row0, mix_style, no_noise};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bool vec = (hw & 3) == 0;
   const unsigned hw_v = vec ? hw / 4 : hw;

@@ -453,6 +453,28 @@ def augment_batch_inner(generator: torch.Generator, images: torch.Tensor,
     return img[..., None], lab
 
 
+def augment_batch_sharded(generator: torch.Generator, images: torch.Tensor,
+                          labels: torch.Tensor, policy: AugPolicy,
+                          warp_backend: str = "kernel", draws: Optional[Draws] = None):
+    """:func:`augment_batch_inner` of this rank's raw shard inside a data
+    group (``parallel/mesh.sharded``), from a stream of the rank's own: one
+    seed is drawn from ``generator`` (which every rank seeds alike, so it
+    stays in step), and the rank's generator is seeded from that seed and
+    its data rank, as the JAX package's ``augment_batch_sharded`` folds the
+    data-axis index into its key. ``draws`` pins the rank's draws (the
+    seed is drawn all the same)."""
+    from maxstyle_tpu_torch import prng
+    from maxstyle_tpu_torch.parallel import mesh
+
+    shard = mesh.active()
+    if shard is None:
+        raise RuntimeError("augment_batch_sharded runs inside parallel/mesh.sharded")
+    seed = int(torch.randint(0, 2 ** 62, (), generator=generator, device=generator.device))
+    own = prng.stream(seed, "augment", shard.rank, device=generator.device)
+    return augment_batch_inner(own, images, labels, policy, warp_backend=warp_backend,
+                               draws=draws)
+
+
 def norm_batch(images: torch.Tensor, labels: torch.Tensor, crop_hw: Tuple[int, int],
                normalize: bool = True):
     """[n,H,W] -> center-cropped, normalized ([n,h,w,1], [n,h,w])."""

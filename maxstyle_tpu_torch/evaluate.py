@@ -17,6 +17,10 @@ test_prostate_segmentation.py:25-98):
 * top-k panels (``save_top_k``): the k best and k worst patients by a
   metric column, ranked as pandas' ``sort_values`` ranks them, rendered by
   ``utils/visualize.py`` into ``{report}/{top|worst}{rank}_{pid}/Seg_plots.png``.
+* data parallelism (``mesh=``, a ``parallel/mesh`` grid): the chunk is
+  rounded up to a multiple of the data group, each rank predicts its rows
+  of a chunk and the labels are gathered, so every rank holds every
+  prediction; only rank 0 writes reports and predictions.
 """
 
 from __future__ import annotations
@@ -30,6 +34,7 @@ import torch
 from maxstyle_tpu_torch.data import medio
 from maxstyle_tpu_torch.data.datasets import SliceDataset, build_general_dataset
 from maxstyle_tpu_torch.metrics import SegmentationScore, table_columns, write_csv
+from maxstyle_tpu_torch.parallel import mesh as pmesh
 from maxstyle_tpu_torch.utils.visualize import save_segmentation_panels
 
 CARDIAC_TEST_SUITES = ["ACDC", "RandomBias", "RandomSpike", "RandomMotion",
@@ -62,18 +67,23 @@ class TestSegmentationNetwork:
                  save_predict: bool = False,
                  foreground_only: bool = False,
                  test_set_ratio: float = 1.0,
-                 crop_hw: Tuple[int, int] = (192, 192), keep_volumes: bool = False):
+                 crop_hw: Tuple[int, int] = (192, 192), keep_volumes: bool = False,
+                 mesh=None):
         self.solver = solver
         self.state = state
         self.dataset = dataset
         self.chunk = maximum_batch_size
+        self.mesh = mesh
+        if mesh is not None:
+            n_data = mesh.data_parallel
+            self.chunk = -(-self.chunk // n_data) * n_data
         self.n_iter = n_iter
         self.crop_hw = crop_hw
         num_classes = 2 if foreground_only else solver.num_classes
         names = (list(class_names) if class_names is not None
                  else [str(i) for i in range(1, num_classes)])
         self.score = SegmentationScore(num_classes, names, metrics_list)
-        self.save_report_dir = save_report_dir
+        self.save_report_dir = save_report_dir if pmesh.is_writer(mesh) else None
         self.save_predict = save_predict
         self.foreground_only = foreground_only
         self.test_set_ratio = test_set_ratio
@@ -95,9 +105,12 @@ class TestSegmentationNetwork:
                 pad = np.zeros((self.chunk - n, *part.shape[1:]), part.dtype)
                 part = np.concatenate([part, pad], axis=0)
             x = torch.from_numpy(np.ascontiguousarray(part[..., None])).to(dev)
-            logits = self.solver.predict(self.state.modules, x, softmax=False,
-                                         n_iter=self.n_iter, normalize_input=False)
-            preds.append(logits[:n].argmax(-1).cpu().numpy())
+            with pmesh.sharded(self.mesh):
+                x = pmesh.local_rows(x)
+                logits = self.solver.predict(self.state.modules, x, softmax=False,
+                                             n_iter=self.n_iter, normalize_input=False)
+                labels = pmesh.gather_rows(logits.argmax(-1))
+            preds.append(labels[:n].cpu().numpy())
         return np.concatenate(preds, axis=0)
 
     def run(self) -> Tuple[List[float], List[float]]:
@@ -195,7 +208,7 @@ def evaluate(solver, state, test_dataset_name: str, test_root_dir: str, *,
              foreground_only: Optional[bool] = None,
              test_set_ratio: float = 1.0, n_iter: int = 1,
              metrics_list: Sequence[str] = ("Dice", "HD95", "ASD"),
-             save_top_k: int = 0):
+             save_top_k: int = 0, mesh=None):
     """One test suite -> (means, stds, per-patient rows); the cardiac /
     prostate evaluate() wrappers in one function (class set chosen by the
     solver's num_classes). With ``save_top_k`` > 0 and a report directory,
@@ -211,9 +224,9 @@ def evaluate(solver, state, test_dataset_name: str, test_root_dir: str, *,
         metrics_list=metrics_list, class_names=class_names,
         save_report_dir=save_report_dir, foreground_only=foreground_only,
         test_set_ratio=test_set_ratio, crop_hw=crop_hw, n_iter=n_iter,
-        keep_volumes=save_top_k > 0)
+        keep_volumes=save_top_k > 0, mesh=mesh)
     means, stds = harness.run()
-    if save_top_k > 0 and save_report_dir:
+    if save_top_k > 0 and harness.save_report_dir:
         harness.save_top_k_result(k=save_top_k)
     return means, stds, harness.score.records
 
@@ -223,7 +236,9 @@ def auto_test(solver, state, dataset_name: str, test_root_dir: str,
     """The post-training benchmark sweep (train_adv…:893-959): every suite
     for the task family -> ``{save_dir}/report/dataset_summary.csv`` with
     per-class Dice/HD95/ASD mean+std columns and a Dice AVG column; returns
-    its rows. An all-missing test root raises."""
+    its rows. An all-missing test root raises. With ``mesh=`` (a
+    ``parallel/mesh`` grid) every rank evaluates, sharded, and rank 0
+    writes."""
     if dataset_name in ("ACDC", "UKBB"):
         suites = CARDIAC_TEST_SUITES
     elif dataset_name == "Prostate":
@@ -254,6 +269,7 @@ def auto_test(solver, state, dataset_name: str, test_root_dir: str,
         raise FileNotFoundError(
             f"no test suites found under {test_root_dir}: looked for "
             f"{suites}, all missing/skipped: {skipped}")
-    os.makedirs(os.path.join(save_dir, "report"), exist_ok=True)
-    write_csv(os.path.join(save_dir, "report", "dataset_summary.csv"), rows)
+    if pmesh.is_writer(kwargs.get("mesh")):
+        os.makedirs(os.path.join(save_dir, "report"), exist_ok=True)
+        write_csv(os.path.join(save_dir, "report", "dataset_summary.csv"), rows)
     return rows

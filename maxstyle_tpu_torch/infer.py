@@ -14,7 +14,12 @@ Usage:
 It runs on the GPU unless ``--device`` names another device.
 ``--torch_ckpt_dir`` takes the reference's per-module ``.pth`` files instead
 of a checkpoint (a module without a file keeps its seed-0 weights).
-``--data_parallel`` is not ported yet (ROADMAP Queue 1 item 8) and raises.
+``--data_parallel`` under ``python -m torch.distributed.run
+--nproc_per_node=N -m maxstyle_tpu_torch.infer --data_parallel ...`` rounds
+the chunk up to a multiple of the ranks; each rank predicts its rows of a
+chunk, the probabilities are gathered, and rank 0 writes (NCCL on
+``cuda:LOCAL_RANK``, gloo with ``--device cpu``; outside such a launch the
+flag runs on one device).
 """
 
 from __future__ import annotations
@@ -32,7 +37,7 @@ def main(argv=None):
     from maxstyle_tpu_torch.data import medio
     from maxstyle_tpu_torch.data.datasets import SliceDataset
     from maxstyle_tpu_torch.flagship import config_solver
-    from maxstyle_tpu_torch.train import not_ported
+    from maxstyle_tpu_torch.parallel import mesh as pmesh
     from maxstyle_tpu_torch.utils import checkpoint as ckpt
     from maxstyle_tpu_torch.utils.postprocess import keep_largest_connected_components
     from maxstyle_tpu_torch.utils.torch_import import import_module_checkpoints
@@ -55,16 +60,22 @@ def main(argv=None):
     parser.add_argument("--uncertainty", action="store_true")
     parser.add_argument("--keep_largest_cc", action="store_true")
     parser.add_argument("--data_parallel", action="store_true",
-                        help="shard slice chunks over all devices (not ported yet)")
+                        help="shard slice chunks over the ranks of a torch.distributed.run "
+                             "launch")
     parser.add_argument("--device", type=str, default=None,
                         help="torch device; the GPU by default ('cpu' to run on the CPU)")
     opt = parser.parse_args(argv)
-    if opt.data_parallel:
-        raise not_ported("--data_parallel", 8, "parallelism")
 
     cfg = (ExperimentConfig.from_json(opt.json_config_path) if opt.json_config_path
            else ExperimentConfig())
-    solver = config_solver(cfg, opt.device)
+    grid = pmesh.init_from_env(opt.device) if opt.data_parallel else None
+    solver = config_solver(cfg, pmesh.device_of(grid, opt.device))
+    writer = pmesh.is_writer(grid)
+    if grid is not None:
+        opt.chunk = -(-opt.chunk // grid.data_parallel) * grid.data_parallel
+        if writer:
+            print(f"data-parallel inference over {grid.data_parallel} ranks, "
+                  f"chunk {opt.chunk}")
     dev = solver.device
     crop_hw = tuple(opt.crop) if opt.crop else cfg.crop_hw
 
@@ -93,12 +104,18 @@ def main(argv=None):
                 part = np.concatenate(
                     [part, np.zeros((opt.chunk - n, *part.shape[1:]), part.dtype)], 0)
             x = torch.from_numpy(np.ascontiguousarray(part[..., None])).to(dev)
-            probs = solver.predict(state.modules, x, softmax=True, normalize_input=False)[:n]
+            with pmesh.sharded(grid):
+                probs = pmesh.gather_rows(solver.predict(
+                    state.modules, pmesh.local_rows(x), softmax=True,
+                    normalize_input=False))[:n]
             pred_parts.append(probs.argmax(-1).to(torch.uint8).cpu().numpy())
             if opt.uncertainty:
                 ent = entropy_map(torch.log(torch.clamp(probs, 1e-8, 1.0)))
                 ent_parts.append(ent.float().cpu().numpy())
         pred = np.concatenate(pred_parts, 0)
+        n_slices += s
+        if not writer:
+            continue
         if opt.keep_largest_cc:
             pred = keep_largest_connected_components(pred).astype(np.uint8)
         medio.write_nrrd(os.path.join(opt.out_dir, f"{pid}_pred.nrrd"), pred,
@@ -106,11 +123,12 @@ def main(argv=None):
         if opt.uncertainty:
             medio.write_nrrd(os.path.join(opt.out_dir, f"{pid}_entropy.nrrd"),
                              np.concatenate(ent_parts, 0), spacing=spacing)
-        n_slices += s
         print(f"{pid}: {s} slices")
     dt = time.time() - t0
-    print(f"segmented {len(ds.patient_ids)} volumes ({n_slices} slices) "
-          f"in {dt:.2f}s ({n_slices / dt:.1f} slices/s)")
+    pmesh.barrier(grid)
+    if writer:
+        print(f"segmented {len(ds.patient_ids)} volumes ({n_slices} slices) "
+              f"in {dt:.2f}s ({n_slices / dt:.1f} slices/s)")
 
 
 if __name__ == "__main__":

@@ -39,7 +39,7 @@ _F = ctypes.c_float
 _SIGNATURES = {
     "ms_moments": ("maxstyle", (_P, _P, _P, _I, _I, _I, _I, _F, _P)),
     "ms_style_apply": ("maxstyle", (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _P, _P, _I,
-                                    _I, _I, _I, _I, _P)),
+                                    _I, _I, _I, _I, _I, _P)),
     "ms_bwd": ("maxstyle", (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P)),
     "warp_bilinear_nearest": ("warp", (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P)),
     "warp_bilinear_nearest_affine": ("warp", (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,

@@ -10,6 +10,12 @@ custom_loss.py, with its reduction and weighting semantics:
 Every loss computes in float32 (:func:`_f32`): under the bf16 compute
 policy model outputs arrive in bf16, and log, softmax and the reductions
 must not run at half precision.
+
+In a data group (``parallel/mesh.sharded``) a loss that averages over the
+batch returns the rank's share of the global mean (``mesh.share``: its
+local sum over the global count), so the ranks' shares add up to the loss
+of the global batch; a denominator that is a data-dependent sum (a mask's)
+is summed over the group.
 """
 
 from __future__ import annotations
@@ -21,6 +27,8 @@ from typing import Optional, Sequence, Tuple
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+from maxstyle_tpu_torch.parallel import mesh
 
 _SOBEL_X = ((1.0, 0.0, -1.0), (2.0, 0.0, -2.0), (1.0, 0.0, -1.0))
 _SOBEL_Y = ((1.0, 2.0, 1.0), (0.0, 0.0, 0.0), (-1.0, -2.0, -1.0))
@@ -83,7 +91,7 @@ def cross_entropy_2d(logits: torch.Tensor, target: torch.Tensor,
         loss = -plogq.sum()
     else:
         raise NotImplementedError(f"bad target rank {target.dim()}")
-    return loss / denom if size_average else loss
+    return mesh.share(loss / denom) if size_average else loss
 
 
 def soft_dice_loss(logits: torch.Tensor, target: torch.Tensor, num_classes: int,
@@ -116,14 +124,14 @@ def soft_dice_loss(logits: torch.Tensor, target: torch.Tensor, num_classes: int,
         else:
             union = torch.sum(p, dim=2) + torch.sum(t, dim=2)
         score = torch.sum((2.0 * inter + smooth) / (union + smooth))
-        return 1.0 - score / (float(b) * float(len(idx)))
+        return mesh.share(1.0 - score / (float(b) * float(len(idx))))
     inter = torch.sum(p * t, dim=2) + smooth
     if squared_union:
         union = torch.sum(p ** 2, dim=2) + torch.sum(t ** 2, dim=2) + smooth
     else:
         union = torch.sum(p, dim=2) + torch.sum(t, dim=2) + smooth
     score = torch.sum(2.0 * inter / union)
-    return 1.0 - score / (float(b) * float(num_classes))
+    return mesh.share(1.0 - score / (float(b) * float(num_classes)))
 
 
 def focal_loss(logits: torch.Tensor, target: torch.Tensor, gamma: float = 2.0,
@@ -141,7 +149,7 @@ def focal_loss(logits: torch.Tensor, target: torch.Tensor, gamma: float = 2.0,
             avec = torch.stack([avec, 1.0 - avec])
         logpt = logpt * avec[tgt]
     loss = -((1.0 - pt) ** gamma) * logpt
-    return torch.mean(loss) if size_average else torch.sum(loss)
+    return mesh.share(torch.mean(loss)) if size_average else torch.sum(loss)
 
 
 def entropy_loss_probs(probs: torch.Tensor, base=2, normalize: bool = False,
@@ -151,7 +159,10 @@ def entropy_loss_probs(probs: torch.Tensor, base=2, normalize: bool = False,
     of ``mask``, which weighs nothing else."""
     probs = _f32(probs)
     n, c, h, w = probs.shape
-    denom = float(n * h * w) if mask is None else torch.sum(_f32(mask))
+    if mask is None:
+        denom = float(mesh.global_batch(n) * h * w)
+    else:
+        denom = mesh.all_sum(torch.sum(_f32(mask)).detach())
     if base == 2:
         loss = -torch.sum(probs * torch.log2(probs + 1e-30)) / denom
         return loss / math.log2(c) if normalize else loss
@@ -163,7 +174,7 @@ def entropy_loss_logits(logits: torch.Tensor) -> torch.Tensor:
     """Mean per-pixel softmax entropy (custom_loss.EntropyLoss:346-361)."""
     logits = _f32(logits)
     ent = -torch.sum(torch.softmax(logits, dim=1) * F.log_softmax(logits, dim=1), dim=1)
-    return torch.mean(ent)
+    return mesh.share(torch.mean(ent))
 
 
 # ---------------------------------------------------------------------------
@@ -201,7 +212,7 @@ def contour_loss(probs: torch.Tensor, target: torch.Tensor, num_classes: Optiona
     gx_t, gy_t = _dense_sobel(tgt.detach())
     loss = (torch.mean((gx_p * mask - gx_t * mask) ** 2)
             + torch.mean((gy_p * mask - gy_t * mask) ** 2))
-    return 0.5 * loss
+    return mesh.share(0.5 * loss)
 
 
 # ---------------------------------------------------------------------------
@@ -225,7 +236,7 @@ def kl_divergence(reference: torch.Tensor, pred: torch.Tensor,
         log_p = F.log_softmax(reference, dim=1)
     plogp = torch.sum(mask * (p * log_p), dim=1, keepdim=True)
     plogq = torch.sum(mask * (p * F.log_softmax(pred, dim=1)), dim=1, keepdim=True)
-    return torch.mean(plogp - plogq)
+    return mesh.share(torch.mean(plogp - plogq))
 
 
 def js_divergence(pred: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
@@ -238,7 +249,7 @@ def js_divergence(pred: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
     n_pix = float(pred.numel() // pred.shape[1])
     kl1 = torch.sum(p * (torch.log(torch.clamp(p, 1e-30, 1.0)) - m_log)) / n_pix
     kl2 = torch.sum(q * (torch.log(torch.clamp(q, 1e-30, 1.0)) - m_log)) / n_pix
-    return 0.5 * (kl1 + kl2)
+    return mesh.share(0.5 * (kl1 + kl2))
 
 
 def segmentation_consistency(output: torch.Tensor, reference: torch.Tensor,
@@ -277,7 +288,8 @@ def segmentation_consistency(output: torch.Tensor, reference: torch.Tensor,
                 tgt = ref_s if is_gt else torch.softmax(ref_s, dim=1)
                 inp = torch.softmax(out_s, dim=1)
                 n, _, h, w = out_s.shape
-                loss = torch.sum((tgt * mask_s - inp * mask_s) ** 2) / float(n * h * w)
+                loss = mesh.share(torch.sum((tgt * mask_s - inp * mask_s) ** 2)
+                                  / float(n * h * w))
             elif div_type == "contour":
                 tgt = ref_s if is_gt else torch.softmax(ref_s, dim=1)
                 inp = torch.softmax(out_s, dim=1)
@@ -301,11 +313,11 @@ def segmentation_consistency(output: torch.Tensor, reference: torch.Tensor,
 
 def mse_recon_loss(pred: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
     """0.5 * mean squared error against a detached target."""
-    return 0.5 * torch.mean((_f32(pred) - _f32(target).detach()) ** 2)
+    return mesh.share(0.5 * torch.mean((_f32(pred) - _f32(target).detach()) ** 2))
 
 
 def l1_recon_loss(pred: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
-    return torch.mean(torch.abs(_f32(pred) - _f32(target).detach()))
+    return mesh.share(torch.mean(torch.abs(_f32(pred) - _f32(target).detach())))
 
 
 def normalized_cross_correlation(x: torch.Tensor, y: torch.Tensor,
@@ -320,7 +332,7 @@ def normalized_cross_correlation(x: torch.Tensor, y: torch.Tensor,
     denom = torch.sqrt(torch.sum(xf * xf, dim=1, keepdim=True)
                        * torch.sum(yf * yf, dim=1, keepdim=True)) + eps
     ncc = (xf * yf + eps / xf.shape[1]) / denom
-    return torch.mean(torch.sum(ncc, dim=1))
+    return mesh.share(torch.mean(torch.sum(ncc, dim=1)))
 
 
 @functools.lru_cache(maxsize=16)
@@ -352,7 +364,7 @@ def ngf_loss(pred: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
     gx_p, gy_p = _dense_sobel(_gaussian_blur3(pred))
     value = 0.5 * (normalized_cross_correlation(gx_t, gx_p)
                    + normalized_cross_correlation(gy_t, gy_p))
-    return 1.0 - value
+    return mesh.share(1.0) - value
 
 
 def tv_loss(x: torch.Tensor, weight: float = 1.0) -> torch.Tensor:
@@ -361,7 +373,8 @@ def tv_loss(x: torch.Tensor, weight: float = 1.0) -> torch.Tensor:
     b, c, h, w = x.shape
     h_tv = torch.sum((x[:, :, 1:, :] - x[:, :, :h - 1, :]) ** 2)
     w_tv = torch.sum((x[:, :, :, 1:] - x[:, :, :, :w - 1]) ** 2)
-    return weight * 2.0 * (h_tv / float(c * (h - 1) * w) + w_tv / float(c * h * (w - 1))) / b
+    return mesh.share(weight * 2.0 * (h_tv / float(c * (h - 1) * w)
+                                      + w_tv / float(c * h * (w - 1))) / b)
 
 
 def image_recon_loss(pred: torch.Tensor, target: torch.Tensor,
@@ -409,4 +422,4 @@ def cosine_similarity_loss(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     bf = b.reshape(b.shape[0], b.shape[1], -1)
     num = torch.sum(af * bf, dim=-1)
     den = torch.linalg.vector_norm(af, dim=-1) * torch.linalg.vector_norm(bf, dim=-1) + 1e-8
-    return torch.mean(1.0 - num / den)
+    return mesh.share(torch.mean(1.0 - num / den))

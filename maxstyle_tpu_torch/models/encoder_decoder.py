@@ -36,18 +36,19 @@ class Encoder(nn.Module):
     """Channel plan 64,128,256,512,512 (÷ feature_reduce), then 1x1 to
     ``out_ch`` + norm + activation. With ``num_domains`` > 1 (DS_FCN) every
     norm, the final one included, is a :class:`layers.DomainSpecificNorm2d`
-    picked by ``domain_id``."""
+    picked by ``domain_id``. ``if_sn`` spectral-norms every conv of the down
+    blocks (``layers.SpectralNormConv2d``)."""
 
     def __init__(self, in_ch: int, out_ch: int, feature_reduce: int = 1,
                  norm: str = "batch", dropout: Optional[float] = None,
-                 act: Optional[str] = "relu", num_domains: int = 1):
+                 act: Optional[str] = "relu", num_domains: int = 1, if_sn: bool = False):
         super().__init__()
         r = feature_reduce
         chans = [64 // r, 128 // r, 256 // r, 512 // r, 512 // r]
         self.inc = layers.InConv(in_ch, chans[0], norm, num_domains)
         for i in range(1, 5):
             self.add_module(f"down{i}", layers.ResConvDown(chans[i - 1], chans[i], norm,
-                                                           dropout, num_domains))
+                                                           dropout, num_domains, if_sn))
         self.final_conv = layers.conv1x1(chans[4], out_ch)
         self.final_norm = layers.make_norm(norm, out_ch, num_domains)
         if act not in ("relu", "sigmoid", None):
@@ -90,10 +91,11 @@ class DualBranchEncoder(nn.Module):
 
     def __init__(self, in_ch: int, z_level_1_ch: int, z_level_2_ch: int,
                  feature_reduce: int = 1, norm: str = "batch",
-                 dropout: Optional[float] = None, num_domains: int = 1):
+                 dropout: Optional[float] = None, num_domains: int = 1, if_sn: bool = False):
         super().__init__()
         self.general_encoder = Encoder(in_ch, z_level_1_ch, feature_reduce, norm,
-                                       dropout, act="relu", num_domains=num_domains)
+                                       dropout, act="relu", num_domains=num_domains,
+                                       if_sn=if_sn)
         self.code_decoupler = CodeDecoupler(z_level_1_ch, z_level_2_ch, norm)
 
     def encode(self, x: torch.Tensor, mode: str, style_fns: StyleFns = None,

@@ -15,7 +15,8 @@ consistency loss is a fresh forward of the attacked image, differentiable
 with respect to the model. The attack's own gradients are taken with
 ``torch.autograd.grad`` with respect to the perturbation only. The forwards
 should be eval-mode (running BatchNorm statistics), as the reference runs
-them.
+them. In a data group (``parallel/mesh.sharded``) the draws are those of
+the global batch and each attack takes the rank's rows.
 
 The bias field is resized as ``jax.image.resize`` resizes: per axis, a
 weight matrix of the Keys cubic kernel (a = -0.5) or the triangle kernel at
@@ -34,6 +35,7 @@ import torch
 
 from maxstyle_tpu_torch import losses
 from maxstyle_tpu_torch.ops.intensity import rescale_intensity
+from maxstyle_tpu_torch.parallel import mesh
 
 
 def _l2_normalize_per_sample(d: torch.Tensor, eps: float = 1e-10) -> torch.Tensor:
@@ -57,7 +59,7 @@ def adv_noise_attack(forward_fn: Callable[[torch.Tensor], torch.Tensor], image: 
     """VAT power iteration from ``draws["d"]``. ``forward_fn`` maps an image
     [N,1,H,W] to logits [N,C,H,W]. Returns (adv_image, consistency)."""
     p0 = init_output.detach()
-    d = draws["d"]
+    d = mesh.local_rows(draws["d"])
 
     def attack_input(r):
         x = image + r
@@ -172,7 +174,7 @@ def adv_bias_attack(forward_fn: Callable[[torch.Tensor], torch.Tensor], image: t
                                                divergence_types=divergence_types,
                                                divergence_weights=divergence_weights)
 
-    cp = draws["cp"]
+    cp = mesh.local_rows(draws["cp"])
     for _ in range(max(n_iter, 1)):
         live = cp.detach().requires_grad_(True)
         with torch.enable_grad():

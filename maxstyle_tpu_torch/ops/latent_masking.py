@@ -22,6 +22,7 @@ from typing import Callable, Dict, Optional, Tuple
 import torch
 
 from maxstyle_tpu_torch import losses
+from maxstyle_tpu_torch.parallel import mesh
 
 # the candidates that the random methods choose among, in the JAX package's
 # switch order
@@ -29,16 +30,20 @@ METHODS = {"random": ("dropout", "spatial", "channel"),
            "RSC": ("spatial", "channel"), "no_dropout": ("spatial", "channel")}
 
 
+# the draws with a row a sample (draw_masking)
+_ROW_DRAWS = ("soft_channel", "soft_spatial", "keep")
+
+
 def _mask_loss(pred: torch.Tensor, target: torch.Tensor, loss_type: str,
                num_classes: int) -> torch.Tensor:
     """Loss menu of the gradient probe (model_util.py:271-281)."""
     gt = losses.one_hot(target, num_classes) if target.dim() < pred.dim() else target
     if loss_type == "corr":
-        return torch.mean(pred * gt)
+        return mesh.share(torch.mean(pred * gt))
     if loss_type == "l1":
-        return torch.mean(torch.abs(pred - gt))
+        return mesh.share(torch.mean(torch.abs(pred - gt)))
     if loss_type in ("mse", "l2"):
-        return torch.mean((pred - gt) ** 2)
+        return mesh.share(torch.mean((pred - gt) ** 2))
     if loss_type == "ce":
         return losses.cross_entropy_2d(pred, target)
     raise NotImplementedError(loss_type)
@@ -132,7 +137,8 @@ def perturb_latent_code(code: torch.Tensor, decode_fn: Callable, target: torch.T
     them chosen by ``draws["switch"]`` ("random", "RSC", "no_dropout").
     ``threshold`` is the percentile, and dropout's rate. Returns (masked
     code, mask of the code's shape); the mask carries no gradient, and the
-    masked code none either with ``if_detach``."""
+    masked code none either with ``if_detach``. In a data group ``draws``
+    are those of the global batch (``draw_masking`` at its shape)."""
     if perturb_type in METHODS:
         methods = METHODS[perturb_type]
     elif perturb_type in ("dropout", "channel", "spatial"):
@@ -140,6 +146,8 @@ def perturb_latent_code(code: torch.Tensor, decode_fn: Callable, target: torch.T
     else:
         raise ValueError(perturb_type)
     base = code.detach() if if_detach else code
+    # the draws of the global batch: this rank's rows
+    draws = {k: mesh.local_rows(v) if k in _ROW_DRAWS else v for k, v in draws.items()}
     kw = dict(percentile=threshold, random_threshold=random_threshold, if_soft=if_soft,
               draws=draws)
     grad = None

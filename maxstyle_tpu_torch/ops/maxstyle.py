@@ -16,6 +16,13 @@ Instance statistics and spreads are detached and ``lmda`` is clamped to
 [0, 1], so gradients flow only through the affine path, ``lmda`` (inside the
 clamp) and the two noise tensors. This module is the autograd reference that
 the fused kernels in ``ops/maxstyle_kernels.py`` are held against.
+
+Inside a data group (``parallel/mesh.sharded``) x holds the rank's rows of
+the global batch: the params hold the same rows, the state's permutation
+indexes global rows, the instance statistics of every rank are gathered
+so that a partner's come from its rank and the spreads are taken over the
+global batch (or global style group), and the MixStyle/DSU draws are
+those of the global batch, of which each call takes the rank's rows.
 """
 
 from __future__ import annotations
@@ -27,6 +34,7 @@ import torch
 
 from maxstyle_tpu_torch import prng
 from maxstyle_tpu_torch.config import MaxStyleConfig
+from maxstyle_tpu_torch.parallel import mesh
 
 
 @dataclasses.dataclass
@@ -171,7 +179,17 @@ def _styling_float(x: torch.Tensor) -> torch.Tensor:
 
 def is_noop(x: torch.Tensor, cfg: MaxStyleConfig) -> bool:
     b, _, h, w = x.shape
-    return b <= 1 or h * w == 1 or (not cfg.mix_style and cfg.no_noise)
+    return mesh.global_batch(b) <= 1 or h * w == 1 or (not cfg.mix_style and cfg.no_noise)
+
+
+def local_params(params: MaxStyleParams) -> MaxStyleParams:
+    """The rank's rows of style params of the global batch."""
+    return MaxStyleParams(*(mesh.local_rows(t) for t in params.tensors()))
+
+
+def _local_spread(std: torch.Tensor) -> torch.Tensor:
+    """A spread's rows for this rank: [1,C,1,1] as it is, [B,C,1,1] sliced."""
+    return std if std.shape[0] == 1 else mesh.local_rows(std)
 
 
 def apply_maxstyle(x: torch.Tensor, params: MaxStyleParams, state: MaxStyleState,
@@ -185,20 +203,22 @@ def apply_maxstyle(x: torch.Tensor, params: MaxStyleParams, state: MaxStyleState
     x = _styling_float(x)
     mu, sig = instance_stats(x, cfg.eps)
     x_normed = (x - mu) / sig
-    new_state = cached_spreads(state, sig, mu, _group_size(cfg, x.shape[0]))
+    mu_g, sig_g = mesh.gather_rows(mu), mesh.gather_rows(sig)
+    new_state = cached_spreads(state, sig_g, mu_g, _group_size(cfg, mu_g.shape[0]))
 
     if cfg.mix_style:
         lm = params.lmda.clamp(0.0, 1.0)
-        sig_mix = sig * (1.0 - lm) + sig[state.perm] * lm
-        mu_mix = mu * (1.0 - lm) + mu[state.perm] * lm
+        perm = mesh.local_rows(state.perm)
+        sig_mix = sig * (1.0 - lm) + sig_g[perm] * lm
+        mu_mix = mu * (1.0 - lm) + mu_g[perm] * lm
     else:
         sig_mix, mu_mix = sig, mu
 
     if cfg.no_noise:
         x_aug = sig_mix * x_normed + mu_mix
     else:
-        x_aug = ((sig_mix + params.gamma_noise * new_state.gamma_std) * x_normed
-                 + (mu_mix + params.beta_noise * new_state.beta_std))
+        x_aug = ((sig_mix + params.gamma_noise * _local_spread(new_state.gamma_std)) * x_normed
+                 + (mu_mix + params.beta_noise * _local_spread(new_state.beta_std)))
     return (state.gate * x_aug + (1.0 - state.gate) * x).to(in_dtype), new_state
 
 
@@ -251,25 +271,26 @@ def draw_mixstyle(generator: torch.Generator, batch_size: int, num_features: int
 def apply_mixstyle(x: torch.Tensor, cfg: MixStyleConfig,
                    draws: Dict[str, torch.Tensor]) -> torch.Tensor:
     """One MixStyle/DSU application to x [B,C,H,W] with the draws of
-    :func:`draw_mixstyle`: a per-call Bernoulli gate (gate_u <= p), instance
+    :func:`draw_mixstyle` (those of the global batch in a data group): a per-call Bernoulli gate (gate_u <= p), instance
     statistics mixed with a permuted batch's (mix "random" or
     "crossdomain"), or perturbed by N(0,1) times their spread over the batch
     (mix "gaussian", DSU). The gate is arithmetic, gate*out + (1-gate)*x.
     Half-precision activations are styled in float32 and cast back."""
     b = x.shape[0]
-    if b <= 1:
+    if mesh.global_batch(b) <= 1:
         return x
     in_dtype = x.dtype
     x = _styling_float(x)
     gate = (draws["gate_u"] <= cfg.p).to(x.dtype)
     mu, sig = instance_stats(x, cfg.eps)
     x_normed = (x - mu) / sig
+    mu_g, sig_g = mesh.gather_rows(mu), mesh.gather_rows(sig)
     if cfg.mix == "gaussian":
-        mu_mix = mu + draws["g_mu"] * _batch_std(mu)
-        sig_mix = sig + draws["g_sig"] * _batch_std(sig)
+        mu_mix = mu + mesh.local_rows(draws["g_mu"]) * _batch_std(mu_g)
+        sig_mix = sig + mesh.local_rows(draws["g_sig"]) * _batch_std(sig_g)
     else:
-        lmda, perm = draws["lmda"], draws["perm"]
-        mu_mix = mu * (1 - lmda) + mu[perm] * lmda
-        sig_mix = sig * (1 - lmda) + sig[perm] * lmda
+        lmda, perm = mesh.local_rows(draws["lmda"]), mesh.local_rows(draws["perm"])
+        mu_mix = mu * (1 - lmda) + mu_g[perm] * lmda
+        sig_mix = sig * (1 - lmda) + sig_g[perm] * lmda
     out = x_normed * sig_mix + mu_mix
     return (gate * out + (1.0 - gate) * x).to(in_dtype)

@@ -21,6 +21,13 @@ are bound by device-memory bytes; the note in the CUDA source says how their
 design meets that bound. The two reductions run one thread-block cluster
 per plane, tiled by :func:`_plane_tiling`.
 
+Inside a data group (``parallel/mesh.sharded``) x holds the rank's rows of
+the global batch: the moments of every rank are gathered into the global
+[B, C] statistics (one all-reduce a call), the spreads are cached from
+them, and :func:`style_apply` reads a row's own statistics and its
+partner's from the global ones at the rank's first global row ``row0``.
+The moments and backward kernels are per plane and run on the rank's rows.
+
 Each wrapper takes the plain PyTorch version of its kernel for a tensor on
 the CPU only; for a CUDA tensor it launches the kernel or raises. The CPU
 tests therefore run this module's autograd algebra on the plain versions.
@@ -38,6 +45,7 @@ from maxstyle_tpu_torch.config import MaxStyleConfig
 from maxstyle_tpu_torch.ops.maxstyle import (MaxStyleParams, MaxStyleState,
                                              _group_size, _styling_float, cached_spreads,
                                              is_noop)
+from maxstyle_tpu_torch.parallel import mesh
 
 
 def _on_cpu(*tensors: torch.Tensor) -> bool:
@@ -70,13 +78,20 @@ def plane_affine_plain(x: torch.Tensor, scale: torch.Tensor,
 
 
 def style_apply_plain(cfg: MaxStyleConfig, x, lmda, gn, bn, mu, sig, perm, gstd, bstd,
-                      gate) -> Tuple[torch.Tensor, ...]:
-    """The MaxStyle map of x [B,C,H,W] -> (out, scale, shift, mu2, sig2):
-    mu2, sig2 = mu[perm], sig[perm], (scale, shift) from
-    :func:`_coefficients` and out = x * scale + shift. lmda [B,1]; gn, bn,
-    mu, sig [B,C]; perm [B]; spreads [1,C] or [B,C]; gate [1,1]."""
-    mu2, sig2 = mu[perm], sig[perm]
-    scale, shift = _coefficients(cfg, lmda, gn, bn, mu, sig, mu2, sig2, gstd, bstd, gate)
+                      gate, row0: int = 0) -> Tuple[torch.Tensor, ...]:
+    """The MaxStyle map of x [b,C,H,W], rows [row0, row0 + b) of a global
+    batch of G rows -> (out, scale, shift, mu2, sig2): a row's own
+    statistics are mu[row0 + i], sig[row0 + i], its partner's mu2, sig2 =
+    mu[perm[row0 + i]], sig[perm[row0 + i]], (scale, shift) from
+    :func:`_coefficients` and out = x * scale + shift. lmda [b,1]; gn, bn
+    [b,C]; mu, sig [G,C]; perm [G]; spreads [1,C] or [G,C]; gate [1,1]."""
+    rows = slice(row0, row0 + x.shape[0])
+    p = perm[rows]
+    mu2, sig2 = mu[p], sig[p]
+    if gstd.shape[0] > 1:
+        gstd, bstd = gstd[rows], bstd[rows]
+    scale, shift = _coefficients(cfg, lmda, gn, bn, mu[rows], sig[rows], mu2, sig2, gstd,
+                                 bstd, gate)
     return plane_affine_plain(x, scale, shift), scale, shift, mu2, sig2
 
 
@@ -136,26 +151,28 @@ def channel_moments(x: torch.Tensor, eps: float) -> Tuple[torch.Tensor, torch.Te
     return mu, sig
 
 
-def style_apply(cfg: MaxStyleConfig, x, lmda, gn, bn, mu, sig, perm, gstd, bstd, gate
-                ) -> Tuple[torch.Tensor, ...]:
+def style_apply(cfg: MaxStyleConfig, x, lmda, gn, bn, mu, sig, perm, gstd, bstd, gate,
+                row0: int = 0) -> Tuple[torch.Tensor, ...]:
     """The MaxStyle map in one kernel launch; same contract as
     :func:`style_apply_plain` (mu2, sig2 and shift come back for the
     backward pass and the checks)."""
     if _on_cpu(x, lmda, gn, bn, mu, sig, gstd, bstd, gate):
-        return style_apply_plain(cfg, x, lmda, gn, bn, mu, sig, perm, gstd, bstd, gate)
+        return style_apply_plain(cfg, x, lmda, gn, bn, mu, sig, perm, gstd, bstd, gate, row0)
     b, c, h, w = x.shape
-    if lmda.shape != (b, 1) or any(t.shape != (b, c) for t in (gn, bn, mu, sig)) \
-            or gstd.shape != bstd.shape or gstd.shape not in ((1, c), (b, c)) \
+    g = mu.shape[0]
+    if lmda.shape != (b, 1) or any(t.shape != (b, c) for t in (gn, bn)) \
+            or any(t.shape != (g, c) for t in (mu, sig)) or not 0 <= row0 <= g - b \
+            or gstd.shape != bstd.shape or gstd.shape not in ((1, c), (g, c)) \
             or gate.numel() != 1:
-        raise ValueError("style_apply: lmda [B,1], gn/bn/mu/sig [B,C], spreads [1,C] or "
-                         "[B,C], gate one value")
-    if perm.shape != (b,) or perm.dtype != torch.int64 or perm.device != x.device \
+        raise ValueError("style_apply: lmda [b,1], gn/bn [b,C], mu/sig [G,C] with rows "
+                         "[row0, row0 + b) in [0, G), spreads [1,C] or [G,C], gate one value")
+    if perm.shape != (g,) or perm.dtype != torch.int64 or perm.device != x.device \
             or not perm.is_contiguous():
-        raise ValueError("style_apply: perm must be a contiguous int64 [B] on x's device")
+        raise ValueError("style_apply: perm must be a contiguous int64 [G] on x's device")
     out = torch.empty_like(x)
     coefs = torch.empty((4, b, c), device=x.device, dtype=torch.float32)
     kernels.launch("ms_style_apply", x, out, lmda, gn, bn, mu, sig, perm, gstd, bstd,
-                   c if gstd.shape[0] > 1 else 0, gate, coefs, b * c, h * w, c,
+                   c if gstd.shape[0] > 1 else 0, gate, coefs, b * c, h * w, c, row0,
                    int(cfg.mix_style), int(cfg.no_noise))
     kernels.LAUNCHES["maxstyle_apply"] += 1
     return (out, *coefs.unbind(0))
@@ -205,14 +222,19 @@ class _FusedStyle(torch.autograd.Function):
     from :func:`_coefficients`. Gradients reach x, lmda (inside the clamp,
     inclusive) and the two noise tensors; mu, sig, perm, the spreads and
     the gate are constants, and every input that needs no gradient gets
-    None (the custom VJP's zeros, which autograd drops)."""
+    None (the custom VJP's zeros, which autograd drops). mu, sig, perm and
+    the spreads are those of the global batch, x, lmda and the noise
+    tensors the rows [row0, row0 + b) of it."""
 
     @staticmethod
-    def forward(ctx, cfg, x, lmda, gn, bn, mu, sig, perm, gstd, bstd, gate):
+    def forward(ctx, cfg, x, lmda, gn, bn, mu, sig, perm, gstd, bstd, gate, row0=0):
         out, scale, _, mu2, sig2 = style_apply(cfg, x, lmda, gn, bn, mu, sig, perm,
-                                               gstd, bstd, gate)
+                                               gstd, bstd, gate, row0)
+        rows = slice(row0, row0 + x.shape[0])
+        if gstd.shape[0] > 1:
+            gstd, bstd = gstd[rows], bstd[rows]
         ctx.cfg = cfg
-        ctx.save_for_backward(x, lmda, scale, mu, sig, mu2, sig2, gstd, bstd, gate)
+        ctx.save_for_backward(x, lmda, scale, mu[rows], sig[rows], mu2, sig2, gstd, bstd, gate)
         return out
 
     @staticmethod
@@ -231,7 +253,9 @@ class _FusedStyle(torch.autograd.Function):
             interior = ((lmda >= 0.0) & (lmda <= 1.0)).float()
             d_lm_full = (sig2 - sig) * s_gxn + (mu2 - mu) * s_g
             d_lmda = gate * interior * d_lm_full.sum(dim=1, keepdim=True)
-        return (None, dx if need_x else None, d_lmda, d_gn, d_bn) + (None,) * 6
+        # None for mu, sig, perm, the spreads, the gate (and row0 when given)
+        return ((None, dx if need_x else None, d_lmda, d_gn, d_bn)
+                + (None,) * (len(ctx.needs_input_grad) - 5))
 
 
 def apply_maxstyle_kernels(x: torch.Tensor, params: MaxStyleParams,
@@ -239,7 +263,9 @@ def apply_maxstyle_kernels(x: torch.Tensor, params: MaxStyleParams,
                            ) -> Tuple[torch.Tensor, MaxStyleState]:
     """Drop-in for ``ops.maxstyle.apply_maxstyle`` on the fused kernels, with
     the same (out, state') contract, first-application spread caching
-    included. x: [B,C,H,W]. The kernels take float32: half-precision
+    included. x: [B,C,H,W], the rank's rows of the global batch in a data
+    group, with ``params`` of those rows and ``state`` of the global batch.
+    The kernels take float32: half-precision
     activations are cast to it before them and back after."""
     if is_noop(x, cfg):
         return x, state
@@ -248,15 +274,17 @@ def apply_maxstyle_kernels(x: torch.Tensor, params: MaxStyleParams,
     b, c = x.shape[:2]
     # stats of a detached input: no gradient ever reaches this kernel
     mu, sig = channel_moments(x.detach(), cfg.eps)
+    if mesh.active() is not None:
+        mu, sig = mesh.gather_rows(torch.stack([mu, sig], 1)).unbind(1)
 
     new_state = cached_spreads(state, sig[:, :, None, None], mu[:, :, None, None],
-                               _group_size(cfg, b))
+                               _group_size(cfg, mu.shape[0]))
     out = _FusedStyle.apply(
         cfg, x,
         params.lmda.reshape(b, 1),
         params.gamma_noise.reshape(b, c),
         params.beta_noise.reshape(b, c),
-        mu, sig, state.perm,
+        mu.contiguous(), sig.contiguous(), state.perm,
         new_state.gamma_std[:, :, 0, 0], new_state.beta_std[:, :, 0, 0],
-        state.gate.reshape(1, 1))
+        state.gate.reshape(1, 1), mesh.row_offset(b))
     return out.to(in_dtype), new_state

@@ -26,17 +26,17 @@ raises.
 replicated), :func:`shard_vit_state` cuts a full ViT state dict into one
 rank's shard, :func:`parallelize_vit` swaps a ViT's four linears a block for
 their parallel shards, and :func:`tp_train_step` is one optimizer step over
-the grid: the batch split over 'data', the gradients all-reduced (averaged)
-over 'data', the optimizer's moments sharded with their parameters because
+the grid: the batch split over 'data', the gradients of each data rank's
+loss share summed over 'data', the optimizer's moments sharded with their parameters because
 each rank's optimizer holds its shards only.
 
 The caller starts the process group (``torch.distributed.init_process_group``
-with its own address, world size and rank). Dropout masks are drawn on each
-rank's shapes: the replicated sites' masks agree over 'model', those on the
-split attention weights and GELU output are each rank's own. Over 'data'
-every rank would draw the same masks for its shard of the batch, which no
-single-process step does, so :func:`tp_train_step` refuses a model with
-dropout when ``data_parallel > 1``.
+with its own address, world size and rank). :func:`tp_train_step` runs its
+loss inside ``parallel/mesh.sharded``, so a dropout mask is drawn at the
+global batch shape and each data rank takes its rows (``models/layers``'s
+``FixableDropout``): the replicated sites' masks agree over 'model' and
+equal the single process's rows, those on the split attention weights and
+GELU output are each model rank's own draw of its shard's shape.
 """
 
 from __future__ import annotations
@@ -49,7 +49,6 @@ import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
-from maxstyle_tpu_torch.models.layers import FixableDropout
 
 # parameter-name suffix -> the dimension split over 'model' (torch layouts)
 _RULES = (
@@ -225,31 +224,25 @@ def tp_train_step(model: nn.Module, optimizer: torch.optim.Optimizer,
                   loss_fn: Callable[[nn.Module, Dict[str, torch.Tensor]], torch.Tensor],
                   grid: Grid):
     """``step(batch) -> loss``: ``batch`` is this data rank's shard (the same
-    on every model rank of its group); the local loss's gradients are
-    averaged over 'data', then ``optimizer`` steps the rank's parameters
-    (shards and replicas). Returns the loss averaged over 'data'. A model
-    with dropout is refused under ``data_parallel > 1`` (module docstring)."""
-    if grid.data_parallel > 1 and any(isinstance(m, FixableDropout) and m.rate > 0
-                                      for m in model.modules()):
-        raise ValueError("dropout under data_parallel > 1 would repeat one shard's masks "
-                         "on every data rank; use dropout_rate 0 or data_parallel 1")
+    on every model rank of its group) and ``loss_fn`` the mean loss over
+    its rows. Each data rank's share of the global mean (its mean over
+    ``data_parallel``) is differentiated, the gradients are summed over
+    'data', then ``optimizer`` steps the rank's parameters (shards and
+    replicas). Returns the global mean loss. The loss runs inside
+    ``parallel/mesh.sharded(grid)`` (module docstring)."""
+    from maxstyle_tpu_torch.parallel import mesh
 
     def step(batch: Dict[str, torch.Tensor]) -> torch.Tensor:
         optimizer.zero_grad(set_to_none=True)
-        loss = loss_fn(model, batch)
-        loss.backward()
-        dp = grid.data_parallel
-        for p in model.parameters():
-            if p.grad is None:
-                p.grad = torch.zeros_like(p)
-            if dp > 1:
-                dist.all_reduce(p.grad, group=grid.data_group)
-                p.grad.div_(dp)
+        with mesh.sharded(grid):
+            loss = mesh.share(loss_fn(model, batch))
+            loss.backward()
+            for p in model.parameters():
+                if p.grad is None:
+                    p.grad = torch.zeros_like(p)
+            mesh.reduce_gradients(model.parameters())
+            loss = mesh.sum_metrics({"loss": loss})["loss"]
         optimizer.step()
-        loss = loss.detach().clone()
-        if dp > 1:
-            dist.all_reduce(loss, group=grid.data_group)
-            loss.div_(dp)
         return loss
 
     return step

@@ -99,8 +99,10 @@ def main() -> None:
     if args.without_live_running_stats:
         train_step.live_running_stats = lambda nets: contextlib.nullcontext()
         print("profile: without live running statistics (not the JAX step's gradient)")
-    for name in args.workload:
-        profile_workload(name, args.k_inner, args.top)
+    from maxstyle_tpu_torch.utils.gpulock import chip_lock
+    with chip_lock("profile_slice"):
+        for name in args.workload:
+            profile_workload(name, args.k_inner, args.top)
 
 
 def profile_workload(workload: str, k_inner: int, top: int) -> None:

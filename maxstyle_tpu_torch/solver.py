@@ -41,6 +41,7 @@ from maxstyle_tpu_torch.ops import latent_masking as lm
 from maxstyle_tpu_torch.ops import maxstyle as ms
 from maxstyle_tpu_torch.ops.intensity import intensity_norm_fn
 from maxstyle_tpu_torch.ops.maxstyle_kernels import apply_maxstyle_kernels
+from maxstyle_tpu_torch.parallel import mesh
 from maxstyle_tpu_torch.utils.ema import ScheduleLR, make_lr_schedule
 
 
@@ -143,7 +144,8 @@ def make_optimizer(optimizer_type: str, params, lr: float,
         return opt, ScheduleLR(opt, make_lr_schedule("step", lr, lr_decay_epochs=5,
                                                      steps_per_epoch=steps_per_epoch,
                                                      total_epochs=n_epochs))
-    raise NotImplementedError(f"optimizer {optimizer_type!r} is not ported yet")
+    raise NotImplementedError(f"optimizer {optimizer_type!r}: Adam, AdamW or SGD, as in the "
+                              "JAX package")
 
 
 def _inner_adam(params, grads, m, v, t: int, lr: float,
@@ -361,7 +363,9 @@ class TripletSegmentationSolver:
         multiplied by ``learnable_mask``. ``style_init`` = ({idx: params},
         {idx: state}) pins the draws. Returns the detached stylized image
         (and the final style params if ``return_style``). ``image_code`` is
-        a Unet's pyramid when the image decoder is a ``UnetDecoder``."""
+        a Unet's pyramid when the image decoder is a ``UnetDecoder``.
+        In a data group the draws, and ``style_init``, are those of the
+        global batch; the returned style params are the rank's rows."""
         code = _detach(image_code)
         indexes = tuple(ms_cfg.decoder_layers_indexes)
         if not indexes:
@@ -377,7 +381,9 @@ class TripletSegmentationSolver:
             style_params, style_state = {}, {}
             for idx in indexes:
                 style_params[idx], style_state[idx] = ms.init_maxstyle(
-                    generator, _batch_size(code), chans[idx], ms_cfg)
+                    generator, mesh.global_batch(_batch_size(code)), chans[idx], ms_cfg)
+        # the draws are the global batch's; the rank optimizes its rows
+        style_params = {idx: ms.local_params(p) for idx, p in style_params.items()}
         mask = ms.learnable_mask(ms_cfg)
 
         # the decoder prefix before the first hook sees no style op: compute
@@ -464,7 +470,8 @@ class TripletSegmentationSolver:
         def make_hook(idx):
             def hook(v):
                 d = (draws[idx] if draws is not None
-                     else ms.draw_mixstyle(generator, v.shape[0], v.shape[1], cfg))
+                     else ms.draw_mixstyle(generator, mesh.global_batch(v.shape[0]), v.shape[1],
+                                           cfg))
                 return ms.apply_mixstyle(v, cfg, d)
             return hook
 
@@ -495,7 +502,8 @@ class TripletSegmentationSolver:
             c = lda_cfg.image_code
             code = z_i.detach()
             d = (draws["image"] if draws is not None else
-                 lm.draw_masking(generator, code.shape, c.mask_type, c.max_threshold))
+                 lm.draw_masking(generator, mesh.global_shape(code.shape), c.mask_type,
+                                 c.max_threshold))
 
             def dec_img(v):
                 return self.decode(nets, "image_decoder", v, mode="frozen")
@@ -510,7 +518,8 @@ class TripletSegmentationSolver:
             c = lda_cfg.shape_code
             code = z_s.detach()
             d = (draws["shape"] if draws is not None else
-                 lm.draw_masking(generator, code.shape, c.mask_type, c.max_threshold))
+                 lm.draw_masking(generator, mesh.global_shape(code.shape), c.mask_type,
+                                 c.max_threshold))
 
             def dec_seg(v):
                 return self.decode(nets, "segmentation_decoder", v, mode="frozen")

@@ -21,8 +21,18 @@ on the GPU; ``--device cpu`` runs on the CPU. ``--torch_ckpt_dir`` imports
 the reference's per-module ``.pth`` files before training
 (``utils/torch_import.py``; a module without a file keeps its fresh
 weights). SGD configs get their StepLR schedule from the epoch's step
-count. ``--data_parallel`` is not ported yet (ROADMAP Queue 1 item 8) and
-raises.
+count.
+
+``--data_parallel`` trains over the ranks of a launch of
+``python -m torch.distributed.run --nproc_per_node=N -m
+maxstyle_tpu_torch.train --data_parallel ...`` (NCCL on ``cuda:LOCAL_RANK``;
+gloo with ``--device cpu``), with the global-batch semantics of
+``parallel/mesh.py``: every rank's loader uses the one seed and takes its
+rows of each global batch (which must divide over the ranks), the step is
+``mesh.shard_train_step`` of the fused step, and only rank 0 writes
+checkpoints, event files and CSVs. As in the JAX package it takes
+precedence over ``--inner_steps``. Outside such a launch, or with one rank,
+the flag runs the single-device step.
 """
 
 from __future__ import annotations
@@ -45,15 +55,12 @@ from maxstyle_tpu_torch.data.datasets import (HostBatchLoader, build_acdc_datase
 from maxstyle_tpu_torch.data.prefetch import prefetch
 from maxstyle_tpu_torch.flagship import config_solver
 from maxstyle_tpu_torch.metrics import RunningScore
+from maxstyle_tpu_torch.parallel import mesh as pmesh
 from maxstyle_tpu_torch.solver import TripletSegmentationSolver
 from maxstyle_tpu_torch.train_step import make_fused_train_step, make_multi_step
 from maxstyle_tpu_torch.utils import checkpoint as ckpt
 from maxstyle_tpu_torch.utils.tb_events import EventFileWriter
 from maxstyle_tpu_torch.utils.torch_import import import_module_checkpoints
-
-
-def not_ported(flag: str, item: int, what: str) -> NotImplementedError:
-    return NotImplementedError(f"{flag} is not ported yet: {what} is ROADMAP Queue 1 item {item}")
 
 
 def build_datasets(cfg: ExperimentConfig, data_setting: str, cval: int):
@@ -122,6 +129,8 @@ class ScalarLogger:
     an epoch's come to the host in one copy when the epoch is logged."""
 
     def __init__(self, log_dir: Optional[str], enabled: bool):
+        # the metrics of a data-parallel step are already summed over its
+        # ranks; only rank 0 passes enabled=True
         self.totals: Dict[str, float] = {}
         self.count = 0
         self.history = []
@@ -176,10 +185,11 @@ def train_network(experiment_name: str, solver: TripletSegmentationSolver, train
                   validate_set, cfg: ExperimentConfig, *, model_dir: str,
                   log_dir: Optional[str] = None, seed: Optional[int] = None, log: bool = False,
                   debug: bool = False, start_epoch: int = 0, state,
-                  max_epochs: Optional[int] = None, inner_steps: int = 1):
+                  max_epochs: Optional[int] = None, inner_steps: int = 1, grid=None):
     """The epoch loop (train_adv…train_network:92-584) from ``state``, an
     ``init_state`` built with ``steps_per_epoch(train_set, cfg)``. Returns
-    (final state, best validation mIoU)."""
+    (final state, best validation mIoU). ``grid`` (``parallel/mesh``)
+    trains data-parallel over its ranks (module docstring)."""
     L = cfg.learning
     d = cfg.data
     dev = solver.device
@@ -189,7 +199,13 @@ def train_network(experiment_name: str, solver: TripletSegmentationSolver, train
     policy = A.get_policy(d.data_aug_policy, pad_hw, crop_hw, image_interp=d.image_interp)
 
     loader = HostBatchLoader(train_set, cfg.train_batch_size, seed=seed)
-    if inner_steps > 1:
+    writer = pmesh.is_writer(grid)
+    if grid is not None and grid.data_parallel > 1:
+        if cfg.train_batch_size % grid.data_parallel:
+            raise ValueError(f"train batch {cfg.train_batch_size} must divide over "
+                             f"{grid.data_parallel} ranks")
+        step = pmesh.shard_train_step(make_fused_train_step(solver, policy, keep_orig), grid)
+    elif inner_steps > 1:
         multi = make_multi_step(solver, policy, keep_orig, n_inner=inner_steps)
 
         def step(st, raw_list, gen):
@@ -200,7 +216,7 @@ def train_network(experiment_name: str, solver: TripletSegmentationSolver, train
     step_gen = prng.stream(seed, "step", device=dev)
     val_loader = HostBatchLoader(validate_set, L.batch_size, seed=seed, drop_last=False,
                                  shuffle=False)
-    logger = ScalarLogger(log_dir, log)
+    logger = ScalarLogger(log_dir, log and writer)
 
     best_score = -1e9
     stop = False
@@ -212,7 +228,8 @@ def train_network(experiment_name: str, solver: TripletSegmentationSolver, train
             t0 = time.time()
             pending = []
             for i_iter, raw in enumerate(prefetch(loader, depth=2,
-                                                  transform=lambda r: to_device(r, dev))):
+                                                  transform=lambda r: to_device(
+                                                      pmesh.shard_batch(r, grid), dev))):
                 if debug and i_iter > 20:
                     break
                 if inner_steps > 1:
@@ -235,9 +252,11 @@ def train_network(experiment_name: str, solver: TripletSegmentationSolver, train
 
             if val_iou > best_score:
                 best_score = val_iou
-                ckpt.save_checkpoint(model_dir, "best", state, epoch, best_score,
-                                     solver.spec.network_type)
-            if (epoch + 1) % cfg.output.save_epoch_every_num_epochs == 0 or epoch == 0:
+                if writer:
+                    ckpt.save_checkpoint(model_dir, "best", state, epoch, best_score,
+                                         solver.spec.network_type)
+            if writer and ((epoch + 1) % cfg.output.save_epoch_every_num_epochs == 0
+                           or epoch == 0):
                 ckpt.save_checkpoint(model_dir, f"epoch_{epoch}", state, epoch, best_score,
                                      solver.spec.network_type)
             if stop:
@@ -246,13 +265,14 @@ def train_network(experiment_name: str, solver: TripletSegmentationSolver, train
     except (KeyboardInterrupt, Exception):
         # interrupt snapshot + resume path: the reference wraps the whole
         # loop in a catch-all that saves a snapshot (train_adv…:580-584)
-        if last_epoch > start_epoch:
+        if last_epoch > start_epoch and writer:
             path = ckpt.save_checkpoint(model_dir, "interrupted", state, last_epoch,
                                         best_score, solver.spec.network_type)
             print(f"interrupted at epoch {last_epoch}; snapshot at {path}")
         raise
     finally:
         logger.close()
+    pmesh.barrier(grid)  # rank 0's checkpoints are on disk for every rank
     return state, best_score
 
 
@@ -281,15 +301,16 @@ def main(argv=None):
     parser.add_argument("--inner_steps", type=int, default=1,
                         help="optimizer steps a call of the step (make_multi_step)")
     parser.add_argument("--data_parallel", action="store_true", default=False,
-                        help="shard the batch over all devices (not ported yet)")
+                        help="shard the batch over the ranks of a torch.distributed.run "
+                             "launch")
     parser.add_argument("--device", type=str, default=None,
                         help="torch device; the GPU by default ('cpu' to run on the CPU)")
     opt = parser.parse_args(argv)
-    if opt.data_parallel:
-        raise not_ported("--data_parallel", 8, "parallelism")
 
     cfg = ExperimentConfig.from_json(opt.json_config_path)
-    solver = config_solver(cfg, opt.device)
+    grid = pmesh.init_from_env(opt.device) if opt.data_parallel else None
+    solver = config_solver(cfg, pmesh.device_of(grid, opt.device))
+    writer = pmesh.is_writer(grid)
 
     project = (f"train_{cfg.data.dataset_name}_{opt.data_setting}"
                f"_n_cls_{cfg.segmentation_model.num_classes}")
@@ -298,9 +319,10 @@ def main(argv=None):
     run_dir = os.path.join(opt.save_dir, project, config_name, str(opt.cval))
     log_dir = os.path.join(run_dir, "log")
     model_dir = os.path.join(run_dir, "model")
-    os.makedirs(log_dir, exist_ok=True)
-    os.makedirs(model_dir, exist_ok=True)
-    shutil.copyfile(opt.json_config_path, os.path.join(run_dir, "config.json"))
+    if writer:
+        os.makedirs(log_dir, exist_ok=True)
+        os.makedirs(model_dir, exist_ok=True)
+        shutil.copyfile(opt.json_config_path, os.path.join(run_dir, "config.json"))
 
     n_steps = None
     if not opt.no_train:
@@ -318,12 +340,14 @@ def main(argv=None):
         state, meta = ckpt.load_checkpoint(opt.resume_ckpt_path, "interrupted", state)
         start_epoch = meta.get("epoch", 0)
         print(f"resumed from {opt.resume_ckpt_path} at epoch {start_epoch}")
+    if state is not None:
+        pmesh.replicate(state, grid)
 
     if not opt.no_train:
         state, _ = train_network(experiment_name, solver, train_set, validate_set, cfg,
                                  model_dir=model_dir, log_dir=log_dir, seed=opt.seed,
                                  log=opt.log, debug=opt.debug, start_epoch=start_epoch,
-                                 state=state, inner_steps=opt.inner_steps)
+                                 state=state, inner_steps=opt.inner_steps, grid=grid)
 
     if opt.auto_test:
         from maxstyle_tpu_torch.evaluate import auto_test
@@ -343,9 +367,11 @@ def main(argv=None):
                          opt.test_root_dir or cfg.data.root_dir, save_dir=model_dir,
                          method_name=config_name, crop_hw=cfg.crop_hw,
                          new_spacing=cfg.data.new_spacing,
-                         maximum_batch_size=opt.test_batch_size)
-        for row in rows:
-            print(json.dumps(row))
+                         maximum_batch_size=opt.test_batch_size, mesh=grid)
+        if writer:
+            for row in rows:
+                print(json.dumps(row))
+    pmesh.barrier(grid)
 
 
 if __name__ == "__main__":

@@ -12,6 +12,15 @@ At the boundary the layouts are the JAX package's: ``batch["image"]`` is
 [N,H,W,1] float and ``batch["label"]`` [N,H,W] int; raw batches are [N,H,W]
 (one step) or [K,N,H,W] (K steps). The step updates the TrainState in place
 and returns it with the metrics, as float32 tensors on the state's device.
+
+Under ``parallel/mesh.shard_train_step`` a step runs on the rank's shard of
+the batch with the global-batch semantics of ``parallel/mesh.py``: every
+draw, and every injected override, is the global batch's (the rank takes
+its rows), the losses and metrics are the rank's shares, the weight
+gradients are summed over the data group in one bucket before the
+optimizers step, and the metrics come back summed, so every rank holds the
+global values. The fused step augments each rank's raw shard from a stream
+of its own.
 """
 
 from __future__ import annotations
@@ -24,6 +33,7 @@ import torch
 from maxstyle_tpu_torch import train_step_branches as br
 from maxstyle_tpu_torch.data import augment as A
 from maxstyle_tpu_torch.models.layers import dropout_step, live_running_stats
+from maxstyle_tpu_torch.parallel import mesh
 from maxstyle_tpu_torch.solver import TrainState, TripletSegmentationSolver
 
 LOSS_KEYS = (
@@ -39,10 +49,12 @@ def add_input_noise(clean_image: torch.Tensor, noise: torch.Tensor,
                     intensity_norm_type: str) -> torch.Tensor:
     """Denoising-autoencoder input corruption (train_adv…:179-186) given the
     N(0,1) draw ``noise``: +0.05*noise, then clamp to the clean batch's
-    global [min, max] (min_max) or re-instance-normalize (z_score)."""
+    global [min, max] (min_max; over the global batch in a data group) or
+    re-instance-normalize (z_score)."""
     noisy = clean_image + 0.05 * noise
     if intensity_norm_type == "min_max":
-        return torch.clamp(noisy, clean_image.min(), clean_image.max())
+        return torch.clamp(noisy, mesh.all_extreme(clean_image.min(), "min"),
+                           mesh.all_extreme(clean_image.max(), "max"))
     if intensity_norm_type == "z_score":
         mean = noisy.mean(dim=(2, 3), keepdim=True)
         var = noisy.var(dim=(2, 3), keepdim=True, unbiased=False)
@@ -91,10 +103,11 @@ def make_train_step(solver: TripletSegmentationSolver):
         label = label.long()
         ov = overrides or {}
         if "image_n" in ov:
-            image_n = ov["image_n"].permute(0, 3, 1, 2).float().contiguous()
+            image_n = mesh.local_rows(ov["image_n"]).permute(0, 3, 1, 2).float().contiguous()
         else:
-            noise = torch.randn(clean.shape, generator=generator, device=clean.device)
-            image_n = add_input_noise(clean, noise, cfg.data.intensity_norm_type)
+            noise = torch.randn(mesh.global_shape(clean.shape), generator=generator,
+                                device=clean.device)
+            image_n = add_input_noise(clean, mesh.local_rows(noise), cfg.data.intensity_norm_type)
         nets = state.modules
         for opt in state.optimizers.values():
             opt.zero_grad(set_to_none=True)
@@ -136,17 +149,19 @@ def make_train_step(solver: TripletSegmentationSolver):
                 generator=generator, metrics=m, draws=ov.get("branch_draws"))
 
         total.backward()
-        for name, opt in state.optimizers.items():
+        params = [p for name in state.optimizers for p in nets[name].parameters()]
+        for p in params:
             # every weight steps, as under optax, where each leaf has a gradient
-            for p in nets[name].parameters():
-                if p.grad is None:
-                    p.grad = torch.zeros_like(p)
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
+        mesh.reduce_gradients(params)
+        for name, opt in state.optimizers.items():
             opt.step()
             if name in state.schedulers:
                 state.schedulers[name].step()
         m["loss/total"] = total
         state.step += 1
-        return state, {k: v.detach() for k, v in m.items()}
+        return state, mesh.sum_metrics({k: v.detach() for k, v in m.items()})
 
     return step
 
@@ -169,15 +184,17 @@ def make_fused_train_step(solver: TripletSegmentationSolver, aug_policy: A.AugPo
     [N,H,W]}, augments them on their device, pairs them with the
     center-cropped originals when ``keep_orig``, and trains one step.
     ``overrides`` pins the draws: "aug_draws" those of the augmentation (see
-    ``augment.draw_aug``), the rest those of ``make_train_step``'s step."""
+    ``augment.draw_aug``; in a data group the rank's own), the rest those of
+    ``make_train_step``'s step."""
     base_step = make_train_step(solver)
     crop_hw = aug_policy.crop_hw
 
     def fused(state: TrainState, raw: Dict[str, torch.Tensor], generator: torch.Generator,
               overrides: Dict[str, Any] | None = None):
         ov = dict(overrides or {})
-        img, lab = A.augment_batch_inner(generator, raw["image"], raw["label"], aug_policy,
-                                         draws=ov.pop("aug_draws", None))
+        augment = A.augment_batch_inner if mesh.active() is None else A.augment_batch_sharded
+        img, lab = augment(generator, raw["image"], raw["label"], aug_policy,
+                           draws=ov.pop("aug_draws", None))
         batch = {"image": img, "label": lab}
         if keep_orig:
             oi, ol = A.norm_batch(raw["image"], raw["label"], crop_hw)

@@ -23,6 +23,10 @@ The branches run inside the step's dropout context, so their "train" and
 branch adds its refinement terms as the JAX package does; a DS_FCN
 hard-example pass of a branch does not write the statistics it computes
 (the JAX step drops them).
+
+In a data group (``parallel/mesh.sharded``) every draw is that of the
+global batch (and so is every injected one), each op takes the rank's
+rows, and every loss is the rank's share of the global mean.
 """
 
 from __future__ import annotations
@@ -35,6 +39,7 @@ from maxstyle_tpu_torch import losses
 from maxstyle_tpu_torch.ops import advchain
 from maxstyle_tpu_torch.ops import latent_masking as lm
 from maxstyle_tpu_torch.ops import randconv as rc
+from maxstyle_tpu_torch.parallel import mesh
 
 N_RANDCONV_VIEWS = 3
 
@@ -72,7 +77,7 @@ def rsc_branch(solver, cfg, nets, aux, *, clean_image, image_n, label, generator
     for key, code, name, target in (("image", aux.z_i, "image_decoder", clean_image.detach()),
                                     ("shape", aux.z_s, "segmentation_decoder", label)):
         d = (draws[key] if draws is not None
-             else lm.draw_masking(generator, code.shape, "RSC", threshold))
+             else lm.draw_masking(generator, mesh.global_shape(code.shape), "RSC", threshold))
         _, masks[key] = lm.perturb_latent_code(
             code, dec(name), target, num_classes=solver.num_classes, draws=d,
             perturb_type="RSC", threshold=threshold, loss_type="corr",
@@ -123,7 +128,7 @@ def _kl_to_mean(probs_list, p: torch.Tensor) -> torch.Tensor:
     pixels (train_adv…:303-314); probabilities [N,C,H,W]."""
     mean_log = torch.log(torch.clamp(sum(probs_list) / len(probs_list), 1e-8, 1.0))
     n_pix = p.shape[0] * p.shape[2] * p.shape[3]
-    return torch.sum(p * (torch.log(torch.clamp(p, 1e-30, 1.0)) - mean_log)) / n_pix
+    return mesh.share(torch.sum(p * (torch.log(torch.clamp(p, 1e-30, 1.0)) - mean_log)) / n_pix)
 
 
 def rand_conv_branch(solver, cfg, nets, aux, *, clean_image, image_n, label, generator,
@@ -170,13 +175,15 @@ def adv_branch(solver, cfg, nets, aux, *, clean_image, image_n, label, generator
 
     p0 = aux.y0.detach()
     if kind == "adv_noise":
-        d = draws if draws is not None else advchain.draw_adv_noise(generator, clean_image.shape)
+        d = (draws if draws is not None
+             else advchain.draw_adv_noise(generator, mesh.global_shape(clean_image.shape)))
         adv_image, consistency = advchain.adv_noise_attack(
             forward_eval, clean_image, p0, d, epsilon=0.1, xi=1e-6, n_iter=1,
             if_norm_image=True)
     else:
         downscale = 2 if "ACDC" in cfg.data.dataset_name else 4
-        d = draws if draws is not None else advchain.draw_adv_bias(generator, clean_image.shape)
+        d = (draws if draws is not None
+             else advchain.draw_adv_bias(generator, mesh.global_shape(clean_image.shape)))
         adv_image, consistency = advchain.adv_bias_attack(
             forward_eval, clean_image, p0, d, epsilon=0.4, downscale=downscale, n_iter=1,
             if_norm_image=False)

@@ -154,12 +154,31 @@ def test_infer_cli(tmp_path):
                                            (infer, "--torch_ckpt_dir", 7),
                                            (infer, "--data_parallel", 8)])
 def test_unported_flags_raise_and_name_their_roadmap_item(tmp_path, cli, flag, item):
-    """--data_parallel raises; --torch_ckpt_dir imports (here a
-    domain-specific encoder into a DS_FCN run), and raises for a UNETR run:
-    a reference UNETR checkpoint has no importer, in the JAX package either
-    (ROADMAP item 7.1 ported the model and its ViT importer)."""
-    args = {train: ["--json_config_path", str(tmp_path / "none.json")],
-            infer: ["--input_dir", str(tmp_path), "--out_dir", str(tmp_path / "o")]}[cli]
+    """Flags of once-unported items run. --data_parallel outside a
+    ``torch.distributed.run`` launch is the single-device run (item 8; the
+    worlds of 2 are in test_torch_port_data_parallel.py); --torch_ckpt_dir
+    imports (here a domain-specific encoder into a DS_FCN run), and raises
+    for a UNETR run: a reference UNETR checkpoint has no importer, in the
+    JAX package either (ROADMAP item 7.1 ported the model and its ViT
+    importer)."""
+    if flag == "--data_parallel":
+        assert "WORLD_SIZE" not in os.environ
+        if cli is train:
+            root = make_prostate_site(str(tmp_path / "prostate"), n_patients=4)
+            save_dir = str(tmp_path / "saved")
+            train.main(["--json_config_path", write_config(tmp_path, root, max_iteration=1),
+                        "--save_dir", save_dir, "--data_setting", "all", "--cval", "0",
+                        "--seed", "1", "--debug", flag, "--device", "cpu"])
+            model_dir = os.path.join(save_dir, "train_Prostate_all_n_cls_2", "config", "0",
+                                     "model")
+            assert sorted(os.listdir(model_dir)) == ["best", "epoch_0"]
+        else:
+            root = make_prostate_site(str(tmp_path / "site"), n_patients=1, shape=(3, 32, 32),
+                                      names=("img.nii.gz", "seg.nii.gz"))
+            infer.main(["--input_dir", root, "--out_dir", str(tmp_path / "o"), "--chunk", "2",
+                        "--crop", "32", "32", flag, "--device", "cpu"])
+            assert os.listdir(tmp_path / "o") == ["patient_0_pred.nrrd"]
+        return
     if flag == "--torch_ckpt_dir":
         from tests.test_torch_port_torch_import import make_ds_encoder_sd
         ref = tmp_path / "ref"
@@ -184,6 +203,3 @@ def test_unported_flags_raise_and_name_their_roadmap_item(tmp_path, cli, flag, i
         run("DS_FCN_16_standard")
         with pytest.raises(ValueError, match="no importer for a reference UNETR checkpoint"):
             run("UnetTransformer_enable_code_filter_16")
-        return
-    with pytest.raises(NotImplementedError, match=f"Queue 1 item {item}"):
-        cli.main(args + [flag, "--device", "cpu"])
