@@ -23,11 +23,15 @@ Phases, each printing its own lines; any failure exits nonzero:
              for bit at the policy's draws with the elastic gate on and
              off, with no elastic branch and at a matrix across both rims,
              timed beside the parent's route as its library time; also at
-             the Prostate branch paths' N=10, 288 -> 224), the
+             the Prostate branch paths' N=10, 288 -> 224, and at the
+             raw slices of phase 21, N=40 and N=80, 224 -> 192), the
              spline prefilter's matrix form against its recursion and the
              cubic warp (N=10, 288 -> 224), both warps' coordinate entries
              bit for bit at the policy's, uniform and rim-straddling
-             coordinates, and conv3x3_bn_stats at its bench's three shapes
+             coordinates; the three MaxStyle kernels also at the hook shapes
+             of phases 20-21, batch 10 (the OOD arms), 80 and 160 (the
+             sweep, with one spread row a sample, as style groups make
+             them); and conv3x3_bn_stats at its bench's three shapes
              (timed) and at ragged shapes that reach every masked edge;
 4. reference — on a small input, the MaxStyle generation through the
              kernels against the plain autograd op, and the stylized and
@@ -156,7 +160,24 @@ Phases, each printing its own lines; any failure exits nonzero:
              test's bars (losses rtol 2e-4, weights within 2.1 lr, module
              update cosines > 0.95, running statistics rtol 1e-4 / atol
              1e-6), exactly 21/21/15/1 launches a step on each rank; and
-             steps/s of both worlds beside the plain step's (no claim).
+             steps/s of both worlds beside the plain step's (no claim);
+20. ood — the paper's claim (``scripts/ood_method_comparison``): standard
+             and max_style trained on the disk phantoms from seed 1, 600
+             steps at batch 10, 192^2 (the arbiter cell of
+             benchmarks/ood_multiseed_r4.jsonl), then evaluated on the clean
+             phantoms and under gamma, bias-field, ghosting and spike
+             corruptions. Checked: finite final losses and Dice, IID Dice of
+             at least 0.5 in both arms, no kernel launched by the standard
+             arm and exactly 21/21/15 MaxStyle launches a step and no warp by
+             the max_style arm. Printed: each arm's Dice and steps/s beside
+             the JAX package's seed-1 row (a TPU run);
+21. scaling — configs/TPU/ACDC_MaxStyle_b80_grouped.json as shipped
+             (flagship.WORKLOADS "acdc_b80_grouped": effective batch 80,
+             224 -> 192, style groups of 20) through phase_train with one
+             timed round, then the batch sweep (``scripts/bench_scaling``) at
+             effective batch 160, style groups of 20, K=4, one round and one
+             step under the FLOP counter: exactly 21/21/15/1 launches a step in
+             both, steps/s, slices/s and peak memory beside the headline's.
 
 The family phases 12-15 (four network families) print steps/s and peak
 memory beside the card's name and power limit. The tree of phases 9-11 and 19 is
@@ -237,9 +258,35 @@ LAUNCH_PATH = {"maxstyle_stats": "slice", "maxstyle_apply": "slice", "maxstyle_b
 # a cluster with a short last rank (on 132 SMs: 130^2 into 8 ranks of 2116
 # values and a last of 2088 on the float4 path; 101^2 into 4 ranks of 2552
 # and a last of 2545 on the scalar path)
-# the bilinear warp of the Prostate branch paths: N=10, 288 -> 224
-BRANCH_WARP_SHAPE = (10, 288, 224)
+# the composed bilinear warp's side cells: (shape (N, H, h), policy, label
+# classes, seed). The Prostate branch paths (N=10, 288 -> 224), and the raw
+# slices of acdc_b80_grouped (N=40) and of the scaling sweep at 160 (N=80),
+# both 224 -> 192 at the ACDC policy
+WARP_SIDE_CELLS = {
+    "prostate": ((10, 288, 224), "Prostate_affine_elastic_intensity", 2, 8),
+    "acdc_n40": ((40, 224, 192), "ACDC_affine_elastic_intensity", 4, 9),
+    "acdc_n80": ((80, 224, 192), "ACDC_affine_elastic_intensity", 4, 10),
+}
 STYLE_RAGGED = ((3, 5, 7, 9), (2, 1, 1, 1), (4, 3, 33, 31), (2, 1, 130, 130), (1, 1, 101, 101))
+# the MaxStyle hook shapes of the validation harness, and whether the style
+# map takes one spread row a sample: the OOD arms' batch 10 (no, one row for
+# the batch) and the sweep's effective batches 80 and 160 (yes: style groups
+# of 20)
+HARNESS_STYLE_CELLS = {f"b{b}": (((b, 16, 96, 96), (b, 16, 192, 192), (b, 1, 192, 192)), b > 20)
+                       for b in (10, 80, 160)}
+# the cells a kernel row's summed numbers leave out
+SIDE_CELLS = (*WARP_SIDE_CELLS, *HARNESS_STYLE_CELLS)
+# the ood phase: the arbiter cell of benchmarks/ood_multiseed_r4.jsonl (seed 1,
+# 600 steps, batch 10, 192^2), both arms held to an IID Dice of at least 0.5;
+# a max_style step launches a MaxStyle generation's kernels and no warp
+OOD_CELL = {"steps": 600, "hw": 192, "batch": 10, "seed": 1}
+OOD_DOMAINS = ("iid", "gamma", "bias", "ghosting", "spike")
+OOD_IID_BAR = 0.5
+OOD_JAX_RECORD = "benchmarks/ood_multiseed_r4.jsonl"
+PER_STEP["ood"] = PER_GENERATION
+# the scaling phase: the shipped b80 grouped config, then the sweep at 160
+PER_STEP["scaling"] = PER_STEP["slice"]
+SCALING_SWEEP_BATCH = 160
 
 SOURCES = {
     "maxstyle_stats": ("maxstyle_tpu_torch/csrc/maxstyle.cu",
@@ -421,10 +468,11 @@ def _apply_branches(rows):
     return ok
 
 
-def _style_rows(rows, cell, shapes, eps):
+def _style_rows(rows, cell, shapes, eps, grouped=False):
     """The three MaxStyle kernels against their plain versions at one cell's
-    hook shapes; stats and bwd also twice on one input, bit for bit. Returns
-    whether all agree."""
+    hook shapes (with ``grouped``, spreads of one row a sample, as style
+    groups give them); stats and bwd also twice on one input, bit for bit.
+    Returns whether all agree."""
     import torch
     from maxstyle_tpu_torch.config import MaxStyleConfig
     from maxstyle_tpu_torch.ops import maxstyle_kernels as mk
@@ -461,7 +509,7 @@ def _style_rows(rows, cell, shapes, eps):
         # library time is the parent's route (gathers, _coefficients in
         # torch, addcmul)
         cfg = MaxStyleConfig()
-        args = _style_inputs(shape, g, 1.0, 1)
+        args = _style_inputs(shape, g, 1.0, b if grouped else 1)
         k, p = mk.style_apply(cfg, x, *args), mk.style_apply_plain(cfg, x, *args)
         ok_apply, err = _apply_agrees(k, p, mk.style_apply(cfg, x, *args))
         rows["maxstyle_apply"]["shapes"].append(dict(
@@ -644,27 +692,26 @@ def _bilinear_rows(rows):
     return ok
 
 
-def _bilinear_prostate_row(rows):
-    """The composed bilinear warp at the branch paths' Prostate shape (N=10,
-    288 -> 224, policy Prostate_affine_elastic_intensity): bit for bit
-    against its plain version at the policy's draws (elastic gate on for
+def _bilinear_side_row(rows, cell):
+    """The composed bilinear warp at a side cell of WARP_SIDE_CELLS: bit for
+    bit against its plain version at the policy's draws (elastic gate on for
     even samples, off for odd ones) and at a matrix across both rims, and
     timed beside its plain version and the parent's route. Its row entry is
-    the "prostate" cell, which the row's summed numbers leave out."""
+    the cell's, which the row's summed numbers leave out."""
     import torch
     from maxstyle_tpu_torch.bench_style import composed_inputs, parent_route
     from maxstyle_tpu_torch.data import augment as A
     from maxstyle_tpu_torch.ops import warp_kernels as wk
     from maxstyle_tpu_torch.timing import copies_beyond_l2, cuda_ms
 
-    n, H, h = BRANCH_WARP_SHAPE
+    (n, H, h), policy_name, n_labels, seed = WARP_SIDE_CELLS[cell]
     px = n * h * h
     copies = copies_beyond_l2(n * H * H * 16 + px * 8)
-    gen = torch.Generator(device="cuda").manual_seed(8)
-    policy = A.get_policy("Prostate_affine_elastic_intensity", (H, H), (h, h))
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    policy = A.get_policy(policy_name, (H, H), (h, h))
     imgs = [torch.rand((n, H, H), generator=gen, device="cuda") for _ in range(copies)]
-    labs = [torch.randint(0, 2, (n, H, H), generator=gen, device="cuda", dtype=torch.int32)
-            for _ in range(copies)]
+    labs = [torch.randint(0, n_labels, (n, H, H), generator=gen, device="cuda",
+                          dtype=torch.int32) for _ in range(copies)]
     comp = [composed_inputs(gen, policy, n) for _ in range(copies)]
 
     def composed(i, args, fn=wk.warp_bilinear_nearest_affine):
@@ -677,11 +724,11 @@ def _bilinear_prostate_row(rows):
                               (wk.warp_bilinear_nearest_affine,
                                wk.warp_bilinear_nearest_affine_plain))
         checks[f"composed_{kind}"] = (float((ki - pi).abs().max()), int((kl != pl).sum()))
-        print(f"kernel warp_bilinear_nearest prostate composed_{kind}: max abs err "
+        print(f"kernel warp_bilinear_nearest {cell} composed_{kind}: max abs err "
               f"{checks[f'composed_{kind}'][0]:.3e}, label mismatches "
               f"{checks[f'composed_{kind}'][1]} (tol 0)")
     rows["warp_bilinear_nearest"]["shapes"].append(dict(
-        cell="prostate", shape=[n, H, H, h, h], tol=0.0,
+        cell=cell, shape=[n, H, H, h, h], tol=0.0,
         max_abs_err=max(e for e, _ in checks.values()),
         label_mismatches=sum(m for _, m in checks.values()),
         checks={k: {"max_abs_err": e, "label_mismatches": m} for k, (e, m) in checks.items()},
@@ -717,7 +764,8 @@ def _warp_rows(rows):
         return img_err, lab_err
 
     ok = _bilinear_rows(rows)
-    ok &= _bilinear_prostate_row(rows)
+    for cell in WARP_SIDE_CELLS:
+        ok &= _bilinear_side_row(rows, cell)
     n, H, h = CUBIC_SHAPE
     px = n * h * h
     copies = copies_beyond_l2(n * H * H * 8 + px * 8)
@@ -805,6 +853,8 @@ def phase_kernels():
     ok = True
     for cell, shapes in STYLE_SHAPES.items():
         ok &= _style_rows(rows, cell, shapes, eps)
+    for cell, (shapes, grouped) in HARNESS_STYLE_CELLS.items():
+        ok &= _style_rows(rows, cell, shapes, eps, grouped)
     ok &= _style_ragged(rows, eps)
     ok &= _apply_branches(rows)
     ok &= _apply_row_offset(rows)
@@ -2297,6 +2347,100 @@ def phase_data_parallel(smi: str, tmp: str):
     return per_rank[0]
 
 
+def phase_ood(smi: str):
+    """The paper's claim on the card: standard and max_style trained through
+    ``scripts/ood_method_comparison.train_and_eval`` at the arbiter cell
+    (OOD_CELL) and evaluated on the five domains. Fails on a non-finite loss
+    or Dice, an IID Dice under OOD_IID_BAR, a standard arm that launches a
+    kernel, or a max_style arm that does not launch exactly 21/21/15 MaxStyle
+    kernels a step and no warp. Prints both arms' Dice beside the JAX
+    package's seed-1 row (a TPU run)."""
+    import os
+
+    import torch
+    from maxstyle_tpu_torch import kernels
+    from maxstyle_tpu_torch.scripts import ood_method_comparison as ood
+
+    c = OOD_CELL
+    with open(os.path.join(os.path.dirname(os.path.abspath(__file__)), OOD_JAX_RECORD)) as f:
+        jax_rows = {r["method"]: r for r in map(json.loads, f) if r["seed"] == c["seed"]}
+    t0 = time.perf_counter()
+    total = {name: 0 for name in KERNELS}
+    for method, per_step in (("standard", {}), ("max_style", PER_STEP["ood"])):
+        kernels.reset_launches()
+        dice, loss, secs = ood.train_and_eval(method, c["steps"], c["hw"], c["batch"], c["seed"],
+                                              OOD_DOMAINS, device="cuda")
+        torch.cuda.synchronize()
+        launches = dict(kernels.LAUNCHES)
+        ood_avg = sum(dice[d] for d in OOD_DOMAINS[1:]) / (len(OOD_DOMAINS) - 1)
+        jax = jax_rows[method]["dice"]
+        jax_avg = sum(jax[d] for d in OOD_DOMAINS[1:]) / (len(OOD_DOMAINS) - 1)
+        print(f"ood {method} seed {c['seed']}: {c['steps']} steps, batch {c['batch']} "
+              f"@{c['hw']}^2 in {secs:.1f} s ({c['steps'] / secs:.3f} steps/s on {smi}), "
+              f"final loss {loss:.4f}; Dice " + " ".join(f"{d} {dice[d]:.4f}" for d in OOD_DOMAINS)
+              + f", OOD avg {ood_avg:.4f}")
+        print(f"ood {method} seed {c['seed']}, the JAX package on a TPU ({OOD_JAX_RECORD}): "
+              + " ".join(f"{d} {jax[d]:.4f}" for d in OOD_DOMAINS) + f", OOD avg {jax_avg:.4f}")
+        print(f"ood {method}: launches {json.dumps(launches)}")
+        if not (math.isfinite(loss) and all(math.isfinite(v) for v in dice.values())):
+            fail(f"ood {method}: a non-finite loss or Dice")
+        if dice["iid"] < OOD_IID_BAR:
+            fail(f"ood {method}: IID Dice {dice['iid']:.4f} under {OOD_IID_BAR}: the model "
+                 f"did not learn the phantoms")
+        for name in KERNELS:
+            want = per_step.get(name, 0) * c["steps"]
+            if launches[name] != want:
+                fail(f"ood {method}: {name} launched {launches[name]} times over "
+                     f"{c['steps']} steps, expected {want}")
+            total[name] += launches[name]
+    print(f"ood: phase {time.perf_counter() - t0:.1f} s")
+    return total
+
+
+def phase_scaling(smi: str):
+    """The shipped b80 grouped config (``flagship.WORKLOADS["acdc_b80_grouped"]``)
+    through phase_train (21/21/15/1 a step), then the batch sweep
+    (``scripts/bench_scaling.sweep``) at effective batch SCALING_SWEEP_BATCH
+    with style groups of 20: K=4, one round of 2 calls, and one more step
+    under the FLOP counter, every step 21/21/15/1. Prints steps/s, slices/s
+    and peak memory beside the headline's from this run."""
+    import torch
+    from maxstyle_tpu_torch import kernels
+    from maxstyle_tpu_torch.flagship import WORKLOADS
+    from maxstyle_tpu_torch.scripts import bench_scaling
+
+    t0 = time.perf_counter()
+    solver = WORKLOADS["acdc_b80_grouped"](device="cuda")
+    cfg = solver.config
+    b80 = cfg.learning.batch_size
+    total = phase_train("scaling", solver, smi, f"acdc_b80_grouped, effective batch {b80} "
+                        f"@{cfg.crop_hw[0]}^2, style groups of {cfg.max_style.style_group_size}",
+                        rounds=1)
+    del solver
+    kernels.reset_launches()
+    b = SCALING_SWEEP_BATCH
+    (line,) = bench_scaling.sweep(batches=(b,), k_inner=K_INNER, rounds=1, device="cuda")
+    torch.cuda.synchronize()
+    steps = K_INNER * 3 + 1
+    for name in KERNELS:
+        want = PER_STEP["scaling"].get(name, 0) * steps
+        if kernels.LAUNCHES[name] != want:
+            fail(f"scaling sweep at {b}: {name} launched {kernels.LAUNCHES[name]} times over "
+                 f"{steps} steps, expected {want}")
+        total[name] += kernels.LAUNCHES[name]
+    print(f"scaling sweep: {json.dumps(line)}")
+    if not all(math.isfinite(v) for v in (line["steps_per_sec"], line["conv_mm_gflop_per_step"])):
+        fail("scaling sweep: a non-finite rate or FLOP count")
+    head_rate, head_peak = RATES["slice"]
+    b80_rate, b80_peak = RATES["scaling"]
+    print(f"scaling: steps/s, slices/s, peak GiB on {smi}: headline (effective batch 20) "
+          f"{head_rate:.4f}, {20 * head_rate:.2f}, {head_peak:.2f}; acdc_b80_grouped "
+          f"{b80_rate:.4f}, {b80 * b80_rate:.2f}, {b80_peak:.2f}; sweep at {b} "
+          f"{line['steps_per_sec']:.4f}, {line['slices_per_sec']:.2f}, "
+          f"{line['peak_memory_gib']:.2f}; phase {time.perf_counter() - t0:.1f} s")
+    return total
+
+
 def main():
     t_start = time.perf_counter()
     try:
@@ -2345,13 +2489,15 @@ def main():
     paths["basic_solver"] = phase_basic_solver(smi)
     paths["slice_bf16"] = phase_bf16(smi)
     paths["slice_ngf"] = phase_ngf(smi)
+    paths["ood"] = phase_ood(smi)
+    paths["scaling"] = phase_scaling(smi)
 
     out = []
     for kname, row in rows.items():
         shapes = row.pop("shapes")
         # a MaxStyle row sums one styled decode of the headline cell (its
         # three hook shapes); the other rows sum their own shapes
-        main = [s for s in shapes if s["cell"] != "prostate"]
+        main = [s for s in shapes if s["cell"] not in SIDE_CELLS]
 
         def total(key):
             vals = [s[key] for s in main]

@@ -32,12 +32,17 @@ Counterpart of ``__graft_entry__._flagship_solver`` and
   float32 weights, optimizer state, BatchNorm statistics and losses),
   ``headline_unetr_bf16`` (``headline_unetr`` so) and ``headline_ngf``
   (``rec_loss_type="ngf"``, the normalized-gradient-field reconstruction
-  loss).
+  loss); and ``acdc_b80_grouped``, configs/TPU/ACDC_MaxStyle_b80_grouped.json
+  as shipped: the headline's step at effective batch 80 (40 augmented + 40
+  original slices, 224^2 -> 192^2, AdamW) with the MaxStyle statistics
+  taken over style groups of 20.
 * :func:`measure_throughput` times ``make_multi_step`` on synthetic raw
   slices, with the policy, sizes and class count of the solver's config;
   ``python3 -m maxstyle_tpu_torch.flagship --workload <name>`` prints its
   steps/s as one JSON line (K = 4, rounds of 2 calls, as ``chip_smoke.py``
-  runs it). Run as ``PYTHONPATH=<checkout> python3
+  runs it) and appends it, with the card lock's contention, to the history
+  ``build/flagship_history.jsonl`` that ``scripts/bench_summary`` renders.
+  Run as ``PYTHONPATH=<checkout> python3
   maxstyle_tpu_torch/flagship.py ...`` it times another checkout's step.
 
 Every entry point runs on the GPU unless the caller passes ``device="cpu"``;
@@ -63,6 +68,8 @@ from maxstyle_tpu_torch.train_step import make_multi_step
 CONFIGS = Path(__file__).resolve().parent.parent / "configs"
 PROSTATE_MAXSTYLE = CONFIGS / "Prostate" / "MICCAI2022_MaxStyle.json"
 ACDC_MAXSTYLE = CONFIGS / "ACDC" / "1500_epoch" / "MICCAI2022_MaxStyle.json"
+ACDC_B80_GROUPED = CONFIGS / "TPU" / "ACDC_MaxStyle_b80_grouped.json"
+HISTORY = CONFIGS.parent / "build" / "flagship_history.jsonl"
 
 
 def set_float32_policy(device: torch.device) -> None:
@@ -210,7 +217,8 @@ WORKLOADS = {"headline": flagship_solver, "prostate_cubic": prostate_cubic_solve
              "headline_bf16": functools.partial(family_solver, compute_dtype="bfloat16"),
              "headline_unetr_bf16": functools.partial(family_solver, FAMILIES["headline_unetr"],
                                                       compute_dtype="bfloat16"),
-             "headline_ngf": functools.partial(family_solver, rec_loss_type="ngf")}
+             "headline_ngf": functools.partial(family_solver, rec_loss_type="ngf"),
+             "acdc_b80_grouped": functools.partial(config_file_solver, ACDC_B80_GROUPED)}
 
 
 def main(argv=None) -> None:
@@ -221,14 +229,19 @@ def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description="steps/s of a MaxStyle training workload")
     ap.add_argument("--workload", choices=sorted(WORKLOADS), default="headline")
     args = ap.parse_args(argv)
+    from maxstyle_tpu_torch.timing import card
     from maxstyle_tpu_torch.utils.gpulock import chip_lock
-    with chip_lock(f"flagship {args.workload}", bench_priority=True):
+    with chip_lock(f"flagship {args.workload}", bench_priority=True) as lock:
         solver = WORKLOADS[args.workload](device="cuda")
         # the median of 5 timed rounds of 2 calls
         rate, _, _ = measure_throughput(solver, k_inner=4, n_calls=2, n_repeats=5)
-    print(json.dumps({"workload": args.workload, "steps_per_s": rate,
-                      "device": torch.cuda.get_device_name(0),
-                      "package": sys.modules["maxstyle_tpu_torch"].__file__}))
+    row = {"workload": args.workload, "steps_per_s": rate,
+           "device": torch.cuda.get_device_name(0), "card": card(),
+           "package": sys.modules["maxstyle_tpu_torch"].__file__}
+    print(json.dumps(row))
+    HISTORY.parent.mkdir(parents=True, exist_ok=True)
+    with open(HISTORY, "a") as f:
+        f.write(json.dumps({**row, "ts": time.time(), "chip_lock": lock}) + "\n")
 
 
 if __name__ == "__main__":

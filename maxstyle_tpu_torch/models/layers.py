@@ -43,6 +43,27 @@ from maxstyle_tpu_torch.parallel import mesh
 LRELU_SLOPE = 0.2
 MODES = ("train", "frozen", "eval")
 
+# The running-update experiment of ``scripts/exp_bn_residual`` (never set in
+# training or tests of training). None, the default, is the shipped route:
+# cuDNN's batch norm updates the running statistics itself, with the
+# Bessel-corrected update. Set, every arm takes the same explicit route (the
+# batch moments, then the update below, then a statistics-free batch norm),
+# so the arms differ only in the update: "torch" is the shipped semantics;
+# "biased" updates without the n/(n-1) factor; "off" does not update the
+# running statistics. Read each time a BatchNorm runs in "train" mode; it
+# never changes the output.
+_BN_UPDATE_MODE = None
+
+
+def _running_update(prev_mean: torch.Tensor, prev_var: torch.Tensor, mean: torch.Tensor,
+                    var: torch.Tensor, n: int, m: float):
+    """The running (mean, var) after a "train" pass with batch moments
+    (mean, biased var) over n values a channel, by ``_BN_UPDATE_MODE``."""
+    if _BN_UPDATE_MODE == "off":
+        return prev_mean, prev_var
+    bessel = 1.0 if _BN_UPDATE_MODE == "biased" else n / max(n - 1, 1)
+    return (1.0 - m) * prev_mean + m * mean, (1.0 - m) * prev_var + m * var * bessel
+
 
 def lrelu(x: torch.Tensor) -> torch.Tensor:
     return F.leaky_relu(x, LRELU_SLOPE)
@@ -192,9 +213,7 @@ class BatchNorm(nn.Module):
             mean, var, n = self._global_moments(x)
         prev_mean, prev_var = self._live[:2] if self._live else (self.running_mean,
                                                                  self.running_var)
-        m = self.momentum
-        run_mean = (1.0 - m) * prev_mean + m * mean
-        run_var = (1.0 - m) * prev_var + m * var * (n / max(n - 1, 1))
+        run_mean, run_var = _running_update(prev_mean, prev_var, mean, var, n, self.momentum)
         with torch.no_grad():
             self.running_mean.copy_(run_mean)
             self.running_var.copy_(run_var)
@@ -223,12 +242,16 @@ class BatchNorm(nn.Module):
         """"train" or "frozen" with the global batch's statistics."""
         mean, var, n = self._global_moments(x)
         if mode == "train":
-            with torch.no_grad():
-                m = self.momentum
-                self.running_mean.mul_(1.0 - m).add_(m * mean)
-                self.running_var.mul_(1.0 - m).add_(m * var * (n / max(n - 1, 1)))
+            self._write_running(mean, var, n)
         scale, shift = self._affine(mean, var)
         return torch.addcmul(_bcast(shift, x.dim()), x, _bcast(scale, x.dim()))
+
+    @torch.no_grad()
+    def _write_running(self, mean: torch.Tensor, var: torch.Tensor, n: int) -> None:
+        run_mean, run_var = _running_update(self.running_mean, self.running_var, mean, var, n,
+                                            self.momentum)
+        self.running_mean.copy_(run_mean)
+        self.running_var.copy_(run_var)
 
     def _affine(self, mean: torch.Tensor, var: torch.Tensor
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -247,8 +270,13 @@ class BatchNorm(nn.Module):
                 return self._train_live(x)
             if mesh.active() is not None:
                 return self._global_normalize(x, mode)
-            return F.batch_norm(x, self.running_mean, self.running_var, self.weight,
-                                self.bias, True, self.momentum, self.eps)
+            if _BN_UPDATE_MODE is None:
+                return F.batch_norm(x, self.running_mean, self.running_var, self.weight,
+                                    self.bias, True, self.momentum, self.eps)
+            with torch.no_grad():
+                var, mean = torch.var_mean(x, dim=_channel_dims(x), unbiased=False)
+            self._write_running(mean, var, x.numel() // x.shape[1])
+            return F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0, self.eps)
         if mode == "frozen":
             if mesh.active() is not None:
                 return self._global_normalize(x, mode)

@@ -1,6 +1,7 @@
 """Where the time of a training step goes, on the GPU.
 
     python3 -m maxstyle_tpu_torch.profile_slice [--workload NAME [NAME ...]]
+                                                [--ood-arm METHOD [METHOD ...]]
                                                 [--k-inner 4] [--top 25]
                                                 [--without-live-running-stats]
 
@@ -22,6 +23,12 @@ launches and device time per step of the port's CUDA kernels and of the
 dtype casts (``aten::_to_copy``: the bf16 policy's), the kernels
 with the most device time, those with the most launches, and the
 operators with the most host time.
+
+``--ood-arm`` profiles, for each METHOD, the training loop of that arm of
+``scripts/ood_method_comparison`` (batch 10 at 192^2, seed 1; the
+numpy phantom draws and their copies to the card included) the same way:
+two warm-up steps, K steps timed untraced, K more traced. Without
+``--workload`` it profiles only the arms.
 
 ``--without-live-running-stats`` runs the AdvNoise/AdvBias steps without
 ``layers.live_running_stats``: their eval-mode consistency then normalizes
@@ -91,7 +98,8 @@ def host_syncs(fn) -> collections.Counter:
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--workload", nargs="+", choices=sorted(WORKLOADS), default=["headline"])
+    ap.add_argument("--workload", nargs="+", choices=sorted(WORKLOADS), default=None)
+    ap.add_argument("--ood-arm", nargs="+", default=[], metavar="METHOD")
     ap.add_argument("--k-inner", type=int, default=4)
     ap.add_argument("--top", type=int, default=25)
     ap.add_argument("--without-live-running-stats", action="store_true")
@@ -101,8 +109,42 @@ def main() -> None:
         print("profile: without live running statistics (not the JAX step's gradient)")
     from maxstyle_tpu_torch.utils.gpulock import chip_lock
     with chip_lock("profile_slice"):
-        for name in args.workload:
+        for name in args.workload or ([] if args.ood_arm else ["headline"]):
             profile_workload(name, args.k_inner, args.top)
+        for method in args.ood_arm:
+            profile_ood_arm(method, args.k_inner, args.top)
+
+
+def profile_ood_arm(method: str, steps: int, top: int) -> None:
+    """One OOD arm's training loop: steps/s untraced, then traced."""
+    import numpy as np
+
+    from maxstyle_tpu_torch.flagship import config_solver
+    from maxstyle_tpu_torch.scripts.ab_randconv_bn import train_steps
+    from maxstyle_tpu_torch.scripts.ood_method_comparison import make_config
+    hw, batch, seed = 192, 10, 1
+    solver = config_solver(make_config(method, hw, batch), "cuda")
+    state = solver.init_state(seed)
+    data_rng = np.random.RandomState(seed + 1)
+    gen = torch.Generator(device=solver.device).manual_seed(seed + 2)
+
+    def run(n):
+        nonlocal state
+        state, metrics = train_steps(solver, state, n, data_rng, gen, batch, hw)
+        torch.cuda.synchronize()
+        return metrics
+
+    run(2)
+    t0 = time.perf_counter()
+    run(steps)
+    print(f"profile: ood_{method}: {steps / (time.perf_counter() - t0):.4f} steps/s over "
+          f"{steps} untraced steps (batch {batch} @{hw}^2, phantom draws included)")
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        metrics = run(steps)
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    float(metrics["loss/total"])
+    report(f"ood_{method}", prof, wall_ms, steps, top)
 
 
 def profile_workload(workload: str, k_inner: int, top: int) -> None:
@@ -146,7 +188,11 @@ def profile_workload(workload: str, k_inner: int, top: int) -> None:
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t0)
     float(metrics["loss/total"])
+    report(workload, prof, wall_ms, steps, top)
 
+
+def report(workload: str, prof, wall_ms: float, steps: int, top: int) -> None:
+    """Prints what a trace of ``steps`` steps over ``wall_ms`` shows."""
     # device-side events only: an operator's row repeats its kernels' time,
     # and so does a user range's on the device timeline (the optimizer's
     # "Optimizer.step#AdamW.step")
