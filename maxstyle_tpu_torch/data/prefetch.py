@@ -15,6 +15,8 @@ import queue
 import threading
 from typing import Callable, Iterable, Iterator, Optional
 
+from maxstyle_tpu_torch.utils.profiling import span
+
 
 class PrefetchIterator:
     """Wrap an iterable of host batches with an N-deep background queue."""
@@ -59,7 +61,8 @@ class PrefetchIterator:
         t.start()
         try:
             while True:
-                item = q.get()
+                with span("loader_wait"):
+                    item = q.get()
                 if item is self._SENTINEL:
                     if err:
                         raise err[0]

@@ -43,6 +43,7 @@ from maxstyle_tpu_torch.ops.intensity import intensity_norm_fn
 from maxstyle_tpu_torch.ops.maxstyle_kernels import apply_maxstyle_kernels
 from maxstyle_tpu_torch.parallel import mesh
 from maxstyle_tpu_torch.utils.ema import ScheduleLR, make_lr_schedule
+from maxstyle_tpu_torch.utils.profiling import span
 
 
 def resolve_compute_dtype(name: str) -> torch.dtype:
@@ -229,8 +230,9 @@ class TripletSegmentationSolver:
 
     def encode_image(self, nets, x, *, mode: str, domain_id: int = 0):
         """(z_i, z_s) of image x; ``domain_id`` picks DS_FCN's norms."""
-        z = nets["image_encoder"].encode(x, mode, domain_id=domain_id)
-        return self.filter_code(nets, z, mode=mode)
+        with span("net/image_encoder"):
+            z = nets["image_encoder"].encode(x, mode, domain_id=domain_id)
+            return self.filter_code(nets, z, mode=mode)
 
     def filter_code(self, nets, z, *, mode: str):
         if self.spec.is_unet:
@@ -243,7 +245,8 @@ class TripletSegmentationSolver:
         return self._route_codes(z, z_s)
 
     def decode(self, nets, name: str, code, *, mode: str, style_fns=None, **extra):
-        return nets[name](code, mode, style_fns=style_fns, **extra)
+        with span("net/" + name):
+            return nets[name](code, mode, style_fns=style_fns, **extra)
 
     def recon_shape(self, nets, seg, *, is_label_map: bool, image=None, recon_image=None,
                     mode: str, separate_training: Optional[bool] = None):
@@ -442,8 +445,9 @@ class TripletSegmentationSolver:
                             pred, reference_segmentation, loss_type="cross entropy",
                             class_weights=self.class_weights)
                     # lmda takes no part without mixing: its gradient is zero
-                    grads = torch.autograd.grad(total, live, allow_unused=True)
-                with torch.no_grad():
+                    with span("inner_grad"):
+                        grads = torch.autograd.grad(total, live, allow_unused=True)
+                with torch.no_grad(), span("inner_adam"):
                     grads = [torch.zeros_like(x) if g is None else g * k
                              for g, k, x in zip(grads, masks, leaves)]
                     _inner_adam(leaves, grads, m1, m2, t, ms_cfg.lr)

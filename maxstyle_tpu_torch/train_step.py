@@ -21,6 +21,13 @@ gradients are summed over the data group in one bucket before the
 optimizers step, and the metrics come back summed, so every rank holds the
 global values. The fused step augments each rank's raw shard from a stream
 of its own.
+
+Each fused call is the span ``step`` of ``utils/profiling.span``, whose
+children are the phases ``augment``, ``standard_pass``, ``inner_loop``,
+``hard_pass``, ``branches``, ``backward`` and ``optimizer``, in that order;
+they are opened here, at the call sites, and not inside the solver's
+methods (``hard_example_training`` calls ``standard_training``). They
+record only while a profiler does.
 """
 
 from __future__ import annotations
@@ -35,6 +42,7 @@ from maxstyle_tpu_torch.data import augment as A
 from maxstyle_tpu_torch.models.layers import dropout_step, live_running_stats
 from maxstyle_tpu_torch.parallel import mesh
 from maxstyle_tpu_torch.solver import TrainState, TripletSegmentationSolver
+from maxstyle_tpu_torch.utils.profiling import span
 
 LOSS_KEYS = (
     "loss/standard/total", "loss/standard/seg", "loss/standard/image",
@@ -99,66 +107,74 @@ def make_train_step(solver: TripletSegmentationSolver):
         label = batch["label"]
         if label.dim() != 3:
             raise ValueError(f"batch['label'] must be [N,H,W], got {tuple(label.shape)}")
-        clean = image.permute(0, 3, 1, 2).float().contiguous()
-        label = label.long()
-        ov = overrides or {}
-        if "image_n" in ov:
-            image_n = mesh.local_rows(ov["image_n"]).permute(0, 3, 1, 2).float().contiguous()
-        else:
-            noise = torch.randn(mesh.global_shape(clean.shape), generator=generator,
-                                device=clean.device)
-            image_n = add_input_noise(clean, mesh.local_rows(noise), cfg.data.intensity_norm_type)
-        nets = state.modules
-        for opt in state.optimizers.values():
-            opt.zero_grad(set_to_none=True)
-        seed = draw_dropout_seed(generator) if dropout else None
-
-        zero = torch.zeros((), device=clean.device)
-        m = {key: zero for key in LOSS_KEYS}
         with contextlib.ExitStack() as stack:
-            if dropout:
-                stack.enter_context(dropout_step(nets, seed, ov.get("dropout_masks")))
-            if eval_in_step:
-                stack.enter_context(live_running_stats(nets))
-            (seg_l, img_l, gt_l, shape_l), aux = solver.standard_training(
-                nets, clean, label, image_n, mode="train")
-            standard_loss = seg_l + img_l + shape_l + gt_l
-            m["loss/standard/total"] = standard_loss
-            m["loss/standard/seg"] = seg_l
-            m["loss/standard/image"] = img_l
-            m["loss/standard/shape"] = shape_l
-            m["loss/standard/gt_shape"] = gt_l
-            total = standard_loss
+            with span("standard_pass"):
+                clean = image.permute(0, 3, 1, 2).float().contiguous()
+                label = label.long()
+                ov = overrides or {}
+                if "image_n" in ov:
+                    image_n = (mesh.local_rows(ov["image_n"]).permute(0, 3, 1, 2)
+                               .float().contiguous())
+                else:
+                    noise = torch.randn(mesh.global_shape(clean.shape), generator=generator,
+                                        device=clean.device)
+                    image_n = add_input_noise(clean, mesh.local_rows(noise),
+                                              cfg.data.intensity_norm_type)
+                nets = state.modules
+                for opt in state.optimizers.values():
+                    opt.zero_grad(set_to_none=True)
+                seed = draw_dropout_seed(generator) if dropout else None
+
+                zero = torch.zeros((), device=clean.device)
+                m = {key: zero for key in LOSS_KEYS}
+                if dropout:
+                    stack.enter_context(dropout_step(nets, seed, ov.get("dropout_masks")))
+                if eval_in_step:
+                    stack.enter_context(live_running_stats(nets))
+                (seg_l, img_l, gt_l, shape_l), aux = solver.standard_training(
+                    nets, clean, label, image_n, mode="train")
+                standard_loss = seg_l + img_l + shape_l + gt_l
+                m["loss/standard/total"] = standard_loss
+                m["loss/standard/seg"] = seg_l
+                m["loss/standard/image"] = img_l
+                m["loss/standard/shape"] = shape_l
+                m["loss/standard/gt_shape"] = gt_l
+                total = standard_loss
 
             if L.max_style:
-                stylized = solver.generate_max_style_image(
-                    nets, aux.z_i, reference_segmentation=label, ms_cfg=cfg.max_style,
-                    generator=generator, style_init=ov.get("style_init"))
-                h_seg, h_rec, h_shape1, h_shape2 = solver.hard_example_training(
-                    nets, stylized, clean, label, standard_input_image=image_n.detach(),
-                    standard_recon_image=aux.recon_image)
-                ms_loss = h_rec + h_seg + h_shape1 + h_shape2
-                m["loss/hard/total"] = ms_loss
-                m["loss/hard/seg"] = h_seg
-                m["loss/hard/image"] = h_rec
-                m["loss/hard/shape"] = h_shape1 + h_shape2
-                total = total + ms_loss
+                with span("inner_loop"):
+                    stylized = solver.generate_max_style_image(
+                        nets, aux.z_i, reference_segmentation=label, ms_cfg=cfg.max_style,
+                        generator=generator, style_init=ov.get("style_init"))
+                with span("hard_pass"):
+                    h_seg, h_rec, h_shape1, h_shape2 = solver.hard_example_training(
+                        nets, stylized, clean, label, standard_input_image=image_n.detach(),
+                        standard_recon_image=aux.recon_image)
+                    ms_loss = h_rec + h_seg + h_shape1 + h_shape2
+                    m["loss/hard/total"] = ms_loss
+                    m["loss/hard/seg"] = h_seg
+                    m["loss/hard/image"] = h_rec
+                    m["loss/hard/shape"] = h_shape1 + h_shape2
+                    total = total + ms_loss
 
-            total = total + br.apply_enabled_branches(
-                solver, cfg, nets, aux, clean_image=clean, image_n=image_n, label=label,
-                generator=generator, metrics=m, draws=ov.get("branch_draws"))
+            with span("branches"):
+                total = total + br.apply_enabled_branches(
+                    solver, cfg, nets, aux, clean_image=clean, image_n=image_n, label=label,
+                    generator=generator, metrics=m, draws=ov.get("branch_draws"))
 
-        total.backward()
-        params = [p for name in state.optimizers for p in nets[name].parameters()]
-        for p in params:
-            # every weight steps, as under optax, where each leaf has a gradient
-            if p.grad is None:
-                p.grad = torch.zeros_like(p)
-        mesh.reduce_gradients(params)
-        for name, opt in state.optimizers.items():
-            opt.step()
-            if name in state.schedulers:
-                state.schedulers[name].step()
+        with span("backward"):
+            total.backward()
+        with span("optimizer"):
+            params = [p for name in state.optimizers for p in nets[name].parameters()]
+            for p in params:
+                # every weight steps, as under optax, where each leaf has a gradient
+                if p.grad is None:
+                    p.grad = torch.zeros_like(p)
+            mesh.reduce_gradients(params)
+            for name, opt in state.optimizers.items():
+                opt.step()
+                if name in state.schedulers:
+                    state.schedulers[name].step()
         m["loss/total"] = total
         state.step += 1
         return state, mesh.sum_metrics({k: v.detach() for k, v in m.items()})
@@ -189,30 +205,32 @@ def make_fused_train_step(solver: TripletSegmentationSolver, aug_policy: A.AugPo
     base_step = make_train_step(solver)
     crop_hw = aug_policy.crop_hw
 
+    def augmented_batch(raw, generator, draws):
+        augment = A.augment_batch_inner if mesh.active() is None else A.augment_batch_sharded
+        img, lab = augment(generator, raw["image"], raw["label"], aug_policy, draws=draws)
+        if not keep_orig:
+            return {"image": img, "label": lab}
+        oi, ol = A.norm_batch(raw["image"], raw["label"], crop_hw)
+        half = img.shape[0]
+        g = (solver.config.max_style.style_group_size
+             if solver.config.learning.max_style else None)
+        if g and 2 * half > g:
+            if g % 2 or half % (g // 2):
+                raise ValueError(
+                    f"style_group_size={g} with keep_orig pairing needs an even "
+                    f"group that divides both batch halves (half={half}); adjust "
+                    f"batch_size or style_group_size")
+            return {"image": interleave_style_groups(img, oi, g),
+                    "label": interleave_style_groups(lab, ol, g)}
+        return {"image": torch.cat([img, oi], 0), "label": torch.cat([lab, ol], 0)}
+
     def fused(state: TrainState, raw: Dict[str, torch.Tensor], generator: torch.Generator,
               overrides: Dict[str, Any] | None = None):
         ov = dict(overrides or {})
-        augment = A.augment_batch_inner if mesh.active() is None else A.augment_batch_sharded
-        img, lab = augment(generator, raw["image"], raw["label"], aug_policy,
-                           draws=ov.pop("aug_draws", None))
-        batch = {"image": img, "label": lab}
-        if keep_orig:
-            oi, ol = A.norm_batch(raw["image"], raw["label"], crop_hw)
-            half = img.shape[0]
-            g = (solver.config.max_style.style_group_size
-                 if solver.config.learning.max_style else None)
-            if g and 2 * half > g:
-                if g % 2 or half % (g // 2):
-                    raise ValueError(
-                        f"style_group_size={g} with keep_orig pairing needs an even "
-                        f"group that divides both batch halves (half={half}); adjust "
-                        f"batch_size or style_group_size")
-                batch = {"image": interleave_style_groups(img, oi, g),
-                         "label": interleave_style_groups(lab, ol, g)}
-            else:
-                batch = {"image": torch.cat([img, oi], 0),
-                         "label": torch.cat([lab, ol], 0)}
-        return base_step(state, batch, generator, overrides=ov)
+        with span("step"):
+            with span("augment"):
+                batch = augmented_batch(raw, generator, ov.pop("aug_draws", None))
+            return base_step(state, batch, generator, overrides=ov)
 
     return fused
 

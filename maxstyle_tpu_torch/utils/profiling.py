@@ -3,25 +3,49 @@
 Counterpart of ``maxstyle_tpu/utils/profiling.py``: :func:`trace` records a
 ``torch.profiler`` trace (host operators, and the device's kernels when a
 GPU is present) into a log directory, viewable in Perfetto or TensorBoard;
-:class:`StepTimer`, :func:`parameter_count` and :func:`parameter_bytes` as
-in the JAX package; :func:`reestimate_batch_stats` re-estimates the
-BatchNorm running statistics with the port's own train-mode update.
+:func:`span` marks a phase of the program in whatever profiler is
+recording; :func:`parameter_count` and :func:`parameter_bytes` as in the
+JAX package; :func:`reestimate_batch_stats` re-estimates the BatchNorm
+running statistics with the port's own train-mode update.
+
+Spans. The train step, the solver and the prefetch iterator open
+``span(name)`` around their phases (``maxstyle/step``, ``maxstyle/augment``,
+``maxstyle/inner_loop``, ...). While a ``torch.profiler`` records on the
+calling thread, a span is a ``record_function`` annotation named
+``"maxstyle/" + name``: the profiler keeps it in memory with the host
+operators and kernels it encloses, on the same clock, and writes it out
+with its trace (``trace`` here, ``profile_slice``, the benchmark's traced
+stretch). Otherwise a span costs one check of the profiler's state and
+enters nothing. There is no switch: spans exist exactly when something
+profiles. torch's profiler records the thread that started it and the
+autograd engine's threads, not other Python threads: the prefetch
+thread's host-to-device copies have no span of their own.
 """
 
 from __future__ import annotations
 
 import contextlib
 import os
-import time
 from typing import Callable, Dict, Iterable, Optional, Union
 
-import numpy as np
 import torch
 from torch import nn
 
 from maxstyle_tpu_torch.models.layers import BatchNorm
 
 Params = Union[nn.Module, Iterable[torch.Tensor], Dict[str, torch.Tensor]]
+
+SPAN_PREFIX = "maxstyle/"
+_NO_SPAN = contextlib.nullcontext()
+
+
+def span(name: str):
+    """A context manager marking the phase ``name`` of the program: a
+    ``record_function("maxstyle/" + name)`` while a profiler records on
+    this thread, else a shared no-op context."""
+    if torch.autograd._profiler_enabled():
+        return torch.profiler.record_function(SPAN_PREFIX + name)
+    return _NO_SPAN
 
 
 @contextlib.contextmanager
@@ -36,36 +60,6 @@ def trace(log_dir: str):
             activities=activities,
             on_trace_ready=torch.profiler.tensorboard_trace_handler(log_dir)) as prof:
         yield prof
-
-
-class StepTimer:
-    """Wall-clock step-time statistics (compile step excluded by skipping
-    the first `warmup` samples)."""
-
-    def __init__(self, warmup: int = 1):
-        self.warmup = warmup
-        self.samples = []
-        self._t0: Optional[float] = None
-        self._count = 0
-
-    def __enter__(self):
-        self._t0 = time.perf_counter()
-        return self
-
-    def __exit__(self, *exc):
-        dt = time.perf_counter() - self._t0
-        self._count += 1
-        if self._count > self.warmup:
-            self.samples.append(dt)
-
-    def summary(self) -> Dict[str, float]:
-        if not self.samples:
-            return {"steps": 0}
-        arr = np.asarray(self.samples)
-        return {"steps": len(arr), "mean_s": float(arr.mean()),
-                "p50_s": float(np.percentile(arr, 50)),
-                "p95_s": float(np.percentile(arr, 95)),
-                "steps_per_sec": float(1.0 / arr.mean())}
 
 
 def _tensors(params: Params):

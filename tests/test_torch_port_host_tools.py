@@ -228,8 +228,3 @@ def test_trace_writes_a_trace(tmp_path):
         torch.ones(8).sum()
     files = os.listdir(tmp_path / "trace")
     assert len(files) == 1 and files[0].endswith(".pt.trace.json")
-    timer = tprof.StepTimer(warmup=1)
-    for _ in range(3):
-        with timer:
-            pass
-    assert timer.summary()["steps"] == 2
