@@ -31,15 +31,27 @@ Phases, each printing its own lines; any failure exits nonzero:
              coordinates; the three MaxStyle kernels also at the hook shapes
              of phases 20-21, batch 10 (the OOD arms), 80 and 160 (the
              sweep, with one spread row a sample, as style groups make
-             them); and conv3x3_bn_stats at its bench's three shapes
+             them); conv3x3_bn_stats at its bench's three shapes
              (timed) and at ragged shapes that reach every masked edge;
+             and the BatchNorm pair (rows 7-8, batchnorm_fwd and
+             batchnorm_bwd) at both training cells' BatchNorm shapes and
+             the Prostate stem's, and channels-last at the shapes of
+             UNETR's image decoder: y, dx, dweight and dbias against a
+             float64 F.batch_norm (cuDNN's float32 error beside), the
+             running statistics against F.batch_norm's, two runs bit for
+             bit, y and dx in x's memory order, and the kernel's, the
+             plain version's and cuDNN's times beside the bound of 8 (12)
+             bytes a value;
 4. reference — on a small input, the MaxStyle generation through the
              kernels against the plain autograd op, and the stylized and
              predicted outputs finite and of the expected shape;
 5. slice   — the headline training step at full width (effective batch 20,
              224 -> 192, MaxStyle n_iter=5, K=4 steps a call): finite losses,
              launch counts of exactly 21/21/15/1 per step (stats, apply, bwd,
-             bilinear warp), and steps/s;
+             bilinear warp), the BatchNorm pair launched once for each
+             "train" or "frozen" BatchNorm pass and each backward of one
+             over the same run, as hooks on the modules count them, and
+             steps/s;
 6. slice_prostate_cubic — the Prostate MaxStyle config with the cubic warp
              at full width (effective batch 20, 288 -> 224, 2 classes,
              n_iter=5, K=4): finite losses, launches of exactly 21/21/15 per
@@ -118,15 +130,18 @@ Phases, each printing its own lines; any failure exits nonzero:
              is the FCN Decoder over the 768-channel bottom level. Exactly
              21/21/15/1 launches a step, every ViT parameter tensor and
              every pyramid BatchNorm statistic moved, a non-zero hard-example
-             loss, and the device launches a step (torch.profiler, one more
-             call). In each of phases 12-15 the image decoder's hooks 3, 4,
-             5 see the headline's shapes (20x16@96^2, 20x16@192^2,
-             20x1@192^2), at which phase 3 held the kernels;
+             loss, the device launches a step (torch.profiler, one more
+             call), and the BatchNorm pair's launches equal to the run's
+             BatchNorm passes, as in phase 5. In each of phases 12-15 the
+             image decoder's hooks 3, 4, 5 see the headline's shapes
+             (20x16@96^2, 20x16@192^2, 20x1@192^2), at which phase 3 held
+             the kernels;
 16. basic_solver — the baseline SegmentationModel with UNet_16, FCN_16 and
              ResUNet_16 (Adam 1e-4, EMA) at batch 20, 192^2, 4 classes, on
              synthetic slices made on the card: one warm-up step and 8 timed
              steps each; finite losses, every parameter tensor changed, no
-             port kernel launched (the zoo runs none); steps/s;
+             port kernel launched but the BatchNorm pair (the zoo's
+             normalisation); steps/s;
 17. slice_bf16 — configs/ACDC/1500_epoch/MICCAI2022_MaxStyle.json with
              learning.compute_dtype "bfloat16" at full width (effective
              batch 20, 224 -> 192, MaxStyle n_iter=5), one warm-up call and 2
@@ -199,8 +214,27 @@ import time
 K_INNER = 4
 # steps/s and peak memory (GiB) of each training path, as phase_train measured them
 RATES = {}
+# the paths whose BatchNorm pair phase_train holds to the run's BatchNorm
+# passes (_count_batchnorm), the FCN and the UNETR step
+BN_COUNTED = ("slice", "slice_unetr")
 KERNELS = ("maxstyle_stats", "maxstyle_apply", "maxstyle_bwd", "warp_bilinear_nearest",
            "warp_cubic_nearest", "conv3x3_bn_stats")
+# rows 7-8: every "train" and "frozen" BatchNorm of a CUDA tensor launches
+# one of each (a backward where its output's gradient is taken); a path's
+# counts are held to its BatchNorm calls, not to PER_STEP
+BN_KERNELS = ("batchnorm_fwd", "batchnorm_bwd")
+# their shapes: both training cells' BatchNorms (batch 20: 16 channels at
+# 192^2, 32 at 96^2, 64 at 48^2, 128 at 24^2 and at 12^2) and the Prostate
+# stem's 16 channels at 224^2; the layers' eps and momentum; the
+# tolerances of y (dx, dweight and dbias) against float64
+BN_SHAPES = ((20, 16, 192, 192), (20, 32, 96, 96), (20, 64, 48, 48), (20, 128, 24, 24),
+             (20, 128, 12, 12), (20, 16, 224, 224))
+# and channels-last, the memory order of UNETR's image decoder (its four up
+# blocks at batch 20)
+BN_CHANNELS_LAST_SHAPES = ((20, 64, 24, 24), (20, 32, 48, 48), (20, 16, 96, 96),
+                           (20, 16, 192, 192))
+BN_EPS, BN_MOMENTUM = 1e-5, 0.1
+BN_TOL = {"batchnorm_fwd": 1e-5, "batchnorm_bwd": 1e-4}
 # launches per step of each training path; every other kernel launches 0 times
 PER_STEP = {
     "slice": {"maxstyle_stats": 21, "maxstyle_apply": 21, "maxstyle_bwd": 15,
@@ -252,7 +286,8 @@ BASIC_STEPS = 8
 # which path's run each kernel's "launches" is read from
 LAUNCH_PATH = {"maxstyle_stats": "slice", "maxstyle_apply": "slice", "maxstyle_bwd": "slice",
                "warp_bilinear_nearest": "slice", "warp_cubic_nearest": "slice_prostate_cubic",
-               "conv3x3_bn_stats": "conv_bn_fusion"}
+               "conv3x3_bn_stats": "conv_bn_fusion", "batchnorm_fwd": "slice",
+               "batchnorm_bwd": "slice"}
 # stats and bwd are also checked at ragged shapes: hw % 4 != 0, hw = 1, a
 # plane that is not a whole number of float4 steps, and two that split over
 # a cluster with a short last rank (on 132 SMs: 130^2 into 8 ranks of 2116
@@ -301,6 +336,10 @@ SOURCES = {
                            "maxstyle_tpu/ops/warp_pallas.py:184"),
     "conv3x3_bn_stats": ("maxstyle_tpu_torch/csrc/conv_bn_stats.cu",
                          "scripts/proto_conv_bn_fusion.py:41"),
+    "batchnorm_fwd": ("maxstyle_tpu_torch/csrc/batchnorm.cu",
+                      "none: F.batch_norm (cuDNN's bn_fw_tr_1C11_kernel_NCHW)"),
+    "batchnorm_bwd": ("maxstyle_tpu_torch/csrc/batchnorm.cu",
+                      "none: F.batch_norm's backward (cuDNN's bn_bw_1C11_kernel_new)"),
 }
 
 
@@ -843,10 +882,144 @@ def _conv_rows(rows):
     return ok
 
 
+def _bn_case(shape, seed, copies, memory_format=None):
+    """``copies`` of x (channel means spread around 1, deviation 2) and of
+    dy, in ``memory_format`` (NCHW by default), and the weight, bias and
+    running buffers, on the card."""
+    import torch
+    fmt = memory_format or torch.contiguous_format
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    c = shape[1]
+    offset = (1.0 + 3.0 * torch.randn(c, generator=g, device="cuda")).reshape(1, c, 1, 1)
+    xs = [(torch.randn(shape, generator=g, device="cuda") * 2.0 + offset).contiguous(
+        memory_format=fmt) for _ in range(copies)]
+    dys = [torch.randn(shape, generator=g, device="cuda").contiguous(memory_format=fmt)
+           for _ in range(copies)]
+    w = 1.0 + 0.1 * torch.randn(c, generator=g, device="cuda")
+    b = 0.1 * torch.randn(c, generator=g, device="cuda")
+    rm = 0.1 * torch.randn(c, generator=g, device="cuda")
+    rv = 1.0 + 0.1 * torch.rand(c, generator=g, device="cuda")
+    return xs, dys, w, b, rm, rv
+
+
+def _rel(a, ref):
+    """Largest |a - ref| over the largest |ref|."""
+    ref = ref.detach()
+    return float((a.double() - ref).abs().max() / ref.abs().max().clamp_min(1e-30))
+
+
+def _bn_rows(rows):
+    """Rows 7-8, the BatchNorm pair (ops/batchnorm_kernels) at BN_SHAPES
+    and, channels-last, at BN_CHANNELS_LAST_SHAPES: y
+    (forward) and dx (backward) against a float64 F.batch_norm relative to
+    the reference's largest value, dweight and dbias relative to each
+    channel's sum of |terms|, with cuDNN's float32 error beside; the
+    running statistics against F.batch_norm's; two runs bit for bit; and
+    the kernel's, the plain version's and cuDNN's (F.batch_norm, and its
+    backward op) times beside the bound of 8 (12) bytes a value."""
+    import torch
+    import torch.nn.functional as F
+    from maxstyle_tpu_torch.ops import batchnorm_kernels as B
+    from maxstyle_tpu_torch.timing import copies_beyond_l2, cuda_ms
+
+    ok = True
+    m, eps = BN_MOMENTUM, BN_EPS
+    cases = ([(s, None) for s in BN_SHAPES]
+             + [(s, torch.channels_last) for s in BN_CHANNELS_LAST_SHAPES])
+    for i, (shape, fmt) in enumerate(cases):
+        n, c = shape[0] * shape[2] * shape[3], shape[1]
+        vals = n * c
+        copies = copies_beyond_l2(4 * vals)
+        xs, dys, w, b, rm, rv = _bn_case(shape, 40 + i, copies, fmt)
+        cell = "batchnorm" if fmt is None else "batchnorm_channels_last"
+        x, dy = xs[0], dys[0]
+        dims = (0, 2, 3)
+        # forward: the kernel, cuDNN, the plain version and float64
+        rm_k, rv_k, rm_l, rv_l = rm.clone(), rv.clone(), rm.clone(), rv.clone()
+        y_k, st_k = B.batch_norm_fwd(x, w, b, rm_k, rv_k, m, eps)
+        y_again, st_again = B.batch_norm_fwd(x, w, b, None, None, 0.0, eps)
+        y_l = F.batch_norm(x, rm_l, rv_l, w, b, True, m, eps)
+        y_p, _ = B.batch_norm_fwd_plain(x, w, b, rm.clone(), rv.clone(), m, eps)
+        x64, w64, b64 = (t.double().requires_grad_(True) for t in (x, w, b))
+        rm64, rv64 = rm.double(), rv.double()
+        y64 = F.batch_norm(x64, rm64, rv64, w64, b64, True, m, eps)
+        y64.backward(dy.double())
+        fwd_err, fwd_lib_err = _rel(y_k, y64), _rel(y_l, y64)
+        run_err = max(_rel(rm_k, rm_l.double()), _rel(rv_k, rv_l.double()))
+        fwd_bits = torch.equal(y_k, y_again) and torch.equal(st_k, st_again)
+        # backward: the kernel, cuDNN's backward op, the plain version
+        dx_k, dw_k, db_k = B.batch_norm_bwd(dy, x, w, st_k)
+        again = B.batch_norm_bwd(dy, x, w, st_k)
+        lib = [torch.ops.aten.cudnn_batch_norm(t, w, b, rm.clone(), rv.clone(), True, m, eps)
+               for t in xs]
+        rm_t, rv_t = rm.clone(), rv.clone()
+
+        def lib_bwd(j):
+            _, mean, invstd, reserve = lib[j]
+            return torch.ops.aten.cudnn_batch_norm_backward(xs[j], dys[j], w, rm_t, rv_t, mean,
+                                                            invstd, eps, reserve)
+
+        dx_l, dw_l, db_l = lib_bwd(0)
+        dx_p, _, _ = B.batch_norm_bwd_plain(dy, x, w, st_k)
+        var64, mean64 = torch.var_mean(x64.detach(), dims, unbiased=False, keepdim=True)
+        xhat = (x64.detach() - mean64) / torch.sqrt(var64 + eps)
+        terms = {"w": (dy.double() * xhat).abs().sum(dims), "b": dy.double().abs().sum(dims)}
+
+        def grad_err(dx, dw, db):
+            return max(_rel(dx, x64.grad),
+                       float(((dw.double() - w64.grad).abs() / terms["w"]).max()),
+                       float(((db.double() - b64.grad).abs() / terms["b"]).max()))
+
+        bwd_err, bwd_lib_err = grad_err(dx_k, dw_k, db_k), grad_err(dx_l, dw_l, db_l)
+        bwd_bits = all(torch.equal(u, v) for u, v in zip((dx_k, dw_k, db_k), again))
+        same_order = y_k.stride() == x.stride() == dx_k.stride()
+        ok &= same_order
+        # times
+        sts = [B.batch_norm_fwd(t, w, b, None, None, 0.0, eps)[1] for t in xs]
+        times = {
+            "batchnorm_fwd": (
+                cuda_ms(lambda j: B.batch_norm_fwd(xs[j], w, b, rm_t, rv_t, m, eps), copies),
+                cuda_ms(lambda j: B.batch_norm_fwd_plain(xs[j], w, b, rm_t, rv_t, m, eps),
+                        copies),
+                cuda_ms(lambda j: F.batch_norm(xs[j], rm_t, rv_t, w, b, True, m, eps), copies)),
+            "batchnorm_bwd": (
+                cuda_ms(lambda j: B.batch_norm_bwd(dys[j], xs[j], w, sts[j]), copies),
+                cuda_ms(lambda j: B.batch_norm_bwd_plain(dys[j], xs[j], w, sts[j]), copies),
+                cuda_ms(lib_bwd, copies)),
+        }
+        checked = {"batchnorm_fwd": (fwd_err, fwd_lib_err, fwd_bits,
+                                     float((y_k - y_p).abs().max()), 8 * vals + 32 * c, 4 * vals),
+                   "batchnorm_bwd": (bwd_err, bwd_lib_err, bwd_bits,
+                                     float((dx_k - dx_p).abs().max()), 12 * vals + 20 * c,
+                                     7 * vals)}
+        for name, (err, lib_err, bits, plain_diff, nbytes, ops) in checked.items():
+            ms, plain_ms, library_ms = times[name]
+            roof = _roof(nbytes, ops)
+            row = dict(cell=cell, shape=list(shape), max_abs_err=plain_diff, rel_err=err,
+                       tol=BN_TOL[name], library_err=lib_err, bit_equal=bits, ms=ms,
+                       plain_ms=plain_ms, library_ms=library_ms, **roof)
+            if name == "batchnorm_fwd":
+                row["running_err"] = run_err
+            rows[name]["shapes"].append(row)
+            print(f"kernel {name} {cell} {list(shape)}: err vs float64 {err:.3e} "
+                  f"(tol {BN_TOL[name]}; "
+                  f"cuDNN {lib_err:.3e}), bit-equal over two runs {bits}"
+                  + (f", running statistics vs F.batch_norm {run_err:.3e} (tol {BN_TOL[name]}),"
+                     f" y and dx in x's memory order {same_order}"
+                     if name == "batchnorm_fwd" else "")
+                  + f"; {1e3 * ms:.2f} us, {100 * roof['bound_ms'] / ms:.1f}% of the bound "
+                  f"{1e3 * roof['bound_ms']:.2f} us, cuDNN {1e3 * library_ms:.2f} us")
+            ok &= err <= BN_TOL[name] and bits
+        ok &= run_err <= BN_TOL["batchnorm_fwd"]
+        del xs, dys, lib, sts
+    return ok
+
+
 def phase_kernels():
     """Each kernel vs its plain version at every main-path shape."""
     rows = {name: {"name": name, "route": "cuda", "source": SOURCES[name][0],
-                   "replaces": SOURCES[name][1], "shapes": []} for name in KERNELS}
+                   "replaces": SOURCES[name][1], "shapes": []}
+            for name in KERNELS + BN_KERNELS}
     from maxstyle_tpu_torch.config import MaxStyleConfig
     from maxstyle_tpu_torch.bench_style import STYLE_SHAPES, launch_floor_ms
     eps = MaxStyleConfig().eps
@@ -861,10 +1034,11 @@ def phase_kernels():
     floor = launch_floor_ms()
     print(f"launch floor: fill_ of a one-element tensor {floor:.5f} ms a launch "
           f"(CUDA-graph replay)")
-    for name in ("maxstyle_stats", "maxstyle_bwd"):
+    for name in ("maxstyle_stats", "maxstyle_bwd") + BN_KERNELS:
         rows[name]["launch_floor_ms"] = floor
     ok &= _warp_rows(rows)
     ok &= _conv_rows(rows)
+    ok &= _bn_rows(rows)
     for row in rows.values():
         for s in row["shapes"]:
             extra = "".join(f" {k} {s[k]:.5f}" for k in
@@ -946,17 +1120,24 @@ def phase_train(path: str, solver, smi: str, desc: str, rounds: int = 3,
     warm-up, then ``rounds`` rounds of 2), with the launch counts set to 0
     just before and read just after. Checks finite float32 losses, a
     non-zero ``channel`` when given, and the launches per step of PER_STEP[path];
-    then calls ``check(state, metrics of the last call)`` when given."""
+    on the paths of BN_COUNTED, the BatchNorm pair's launches equal to the
+    run's BatchNorm passes; then calls ``check(state, metrics of the last
+    call)`` when given."""
     import torch
     from maxstyle_tpu_torch import kernels
     from maxstyle_tpu_torch.flagship import measure_throughput
 
     torch.cuda.reset_peak_memory_stats()
     kernels.reset_launches()
+    bn_calls, uncount = _count_batchnorm(solver) if path in BN_COUNTED else (None, None)
     t0 = time.perf_counter()
-    rate, state, metrics = measure_throughput(solver, k_inner=K_INNER, n_calls=2,
-                                              n_repeats=rounds)
-    torch.cuda.synchronize()
+    try:
+        rate, state, metrics = measure_throughput(solver, k_inner=K_INNER, n_calls=2,
+                                                  n_repeats=rounds)
+        torch.cuda.synchronize()
+    finally:
+        if uncount is not None:
+            uncount()
     launches = dict(kernels.LAUNCHES)
     steps = state.step
     last = {k: float(v) for k, v in metrics.items()}
@@ -981,9 +1162,51 @@ def phase_train(path: str, solver, smi: str, desc: str, rounds: int = 3,
         if launches[name] != want:
             fail(f"{path}: {name} launched {launches[name]} times over {steps} steps, "
                  f"expected {want}")
+    if bn_calls is not None:
+        print(f"{path}: BatchNorm passes over {steps} steps {json.dumps(bn_calls)} "
+              f"({', '.join(f'{k} {v / steps:g}' for k, v in bn_calls.items())} a step)")
+        if not bn_calls["batchnorm_fwd"] or any(launches[k] != bn_calls[k] for k in BN_KERNELS):
+            fail(f"{path}: the BatchNorm kernels launched {[launches[k] for k in BN_KERNELS]} "
+                 f"times over {steps} steps of {[bn_calls[k] for k in BN_KERNELS]} BatchNorm "
+                 f"passes")
     if check is not None:
         check(state, last)
     return launches
+
+
+def _count_batchnorm(solver):
+    """Count, on every module tree ``solver.init_state`` builds from now on,
+    each layers.BatchNorm "train" or "frozen" pass (a forward hook) and each
+    backward of one (a hook on its output's autograd node, which runs only
+    where autograd runs that node). Returns (the counts by kernel name, a
+    function that removes the hooks)."""
+    from maxstyle_tpu_torch.models.layers import BatchNorm
+
+    calls = dict.fromkeys(BN_KERNELS, 0)
+    handles = []
+
+    def backward_ran(*_):
+        calls["batchnorm_bwd"] += 1
+
+    def forward_ran(module, args, kwargs, out):
+        if (args[1] if len(args) > 1 else kwargs["mode"]) in ("train", "frozen"):
+            calls["batchnorm_fwd"] += 1
+            if out.grad_fn is not None:
+                out.grad_fn.register_hook(backward_ran)
+
+    def init_state(*args, **kwargs):
+        state = type(solver).init_state(solver, *args, **kwargs)
+        handles.extend(m.register_forward_hook(forward_ran, with_kwargs=True)
+                       for m in state.modules.modules() if isinstance(m, BatchNorm))
+        return state
+
+    def uncount():
+        del solver.init_state
+        for h in handles:
+            h.remove()
+
+    solver.init_state = init_state
+    return calls, uncount
 
 
 def _stn_validation(solver, state):
@@ -1192,8 +1415,10 @@ def phase_basic_solver(smi: str):
         if unchanged:
             fail(f"basic_solver {network_type}: parameters {unchanged[:3]} did not change")
     launches = dict(kernels.LAUNCHES)
-    if any(launches.values()):
-        fail(f"basic_solver: the zoo launched port kernels {launches}")
+    if any(n for k, n in launches.items() if k not in BN_KERNELS) \
+            or not all(launches[k] for k in BN_KERNELS):
+        fail(f"basic_solver: the zoo launched port kernels {launches}; only the BatchNorm "
+             f"pair, and both, were expected")
     return launches
 
 
@@ -2504,7 +2729,7 @@ def main():
             return None if any(v is None for v in vals) else sum(vals)
 
         out.append({**row, "launches": paths[LAUNCH_PATH[kname]][kname],
-                    "launches_by_path": {p: n[kname] for p, n in paths.items()},
+                    "launches_by_path": {p: n.get(kname) for p, n in paths.items()},
                     "max_abs_err": max(s["max_abs_err"] for s in shapes),
                     "ms": total("ms"), "plain_ms": total("plain_ms"),
                     "bound_ms": total("bound_ms"), "bound_by": _row_bound_by(main),

@@ -1,6 +1,11 @@
 """Build, load and count the port's hand-written CUDA kernels.
 
-The sources live in ``maxstyle_tpu_torch/csrc/``. Each ``.cu`` file is
+The sources live in ``maxstyle_tpu_torch/csrc/``: ``maxstyle.cu`` (the
+MaxStyle moments, style map and backward; ``ops/maxstyle_kernels``),
+``warp.cu`` and ``warp_cubic.cu`` (the augmentation warps;
+``ops/warp_kernels``), ``conv_bn_stats.cu`` (``proto_conv_bn_fusion``) and
+``batchnorm.cu`` (BatchNorm's "train" and "frozen" forward and backward;
+``ops/batchnorm_kernels``). Each ``.cu`` file is
 compiled by ``nvcc`` for ``sm_90a`` into its own shared library with a plain
 C interface, loaded with ``ctypes``. Builds go to ``build/kernels/`` at the
 root of the checkout, named by a hash of the source, so an edited source is
@@ -9,9 +14,12 @@ module is imported: the first kernel call builds what it needs, and
 :func:`build_all` builds every source at once with one ``nvcc`` process per
 source, all started together.
 
-``LAUNCHES`` counts the launches of each kernel. A wrapper adds one right
-after its kernel was launched and nowhere else, so a run can show that its
-main path went through the kernels.
+``LAUNCHES`` counts the launches of each kernel: ``maxstyle_stats``,
+``maxstyle_apply``, ``maxstyle_bwd``, ``warp_bilinear_nearest``,
+``warp_cubic_nearest``, ``conv3x3_bn_stats``, ``batchnorm_fwd`` and
+``batchnorm_bwd``. A wrapper adds one right after its kernel was launched
+and nowhere else, so a run can show that its main path went through the
+kernels.
 """
 
 from __future__ import annotations
@@ -46,13 +54,19 @@ _SIGNATURES = {
                                               _I, _I, _P)),
     "warp_cubic_nearest": ("warp_cubic", (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P)),
     "conv3x3_bn_stats": ("conv_bn_stats", (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P)),
+    "bn_fwd": ("batchnorm", (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _P)),
+    "bn_bwd": ("batchnorm", (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P)),
+    "bn_max_clusters": ("batchnorm", (_I, _P)),
+    "bn_fwd_rows": ("batchnorm", (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _P)),
+    "bn_bwd_rows": ("batchnorm", (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P)),
+    "bn_rows_max_blocks": ("batchnorm", (_P,)),
 }
 SOURCES = tuple(sorted({src for src, _ in _SIGNATURES.values()}))
 
 LAUNCHES: Dict[str, int] = {name: 0 for name in
                             ("maxstyle_stats", "maxstyle_apply", "maxstyle_bwd",
                              "warp_bilinear_nearest", "warp_cubic_nearest",
-                             "conv3x3_bn_stats")}
+                             "conv3x3_bn_stats", "batchnorm_fwd", "batchnorm_bwd")}
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 BUILD_LOG: Dict[str, str] = {}
@@ -125,10 +139,21 @@ def launch(fn: str, *args) -> None:
     reported an error."""
     source, _ = _SIGNATURES[fn]
     c_args = [a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args]
-    stream = torch.cuda.current_stream().cuda_stream
+    # the current stream's handle without building a torch.cuda.Stream
+    # object: a launch is on the step's critical path
+    stream = torch._C._cuda_getCurrentRawStream(torch.cuda.current_device())
     rc = getattr(_lib(source), fn)(*c_args, stream)
     if rc != 0:
         raise RuntimeError(f"CUDA kernel {fn} failed to launch: cudaError {rc}")
+
+
+def query(fn: str, *args) -> None:
+    """Call C entry point ``fn``, which launches nothing (no stream is
+    appended), and raise if it reported an error."""
+    source, _ = _SIGNATURES[fn]
+    rc = getattr(_lib(source), fn)(*args)
+    if rc != 0:
+        raise RuntimeError(f"CUDA query {fn} failed: cudaError {rc}")
 
 
 def check_cuda_f32(name: str, *tensors: torch.Tensor) -> None:

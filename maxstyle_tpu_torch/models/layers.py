@@ -38,6 +38,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from maxstyle_tpu_torch.ops import batchnorm_kernels
 from maxstyle_tpu_torch.parallel import mesh
 
 LRELU_SLOPE = 0.2
@@ -45,8 +46,9 @@ MODES = ("train", "frozen", "eval")
 
 # The running-update experiment of ``scripts/exp_bn_residual`` (never set in
 # training or tests of training). None, the default, is the shipped route:
-# cuDNN's batch norm updates the running statistics itself, with the
-# Bessel-corrected update. Set, every arm takes the same explicit route (the
+# the batch norm (on a CUDA tensor the kernels of ``ops/batchnorm_kernels``)
+# updates the running statistics itself, with the Bessel-corrected update.
+# Set, every arm takes the same explicit route (the
 # batch moments, then the update below, then a statistics-free batch norm),
 # so the arms differ only in the update: "torch" is the shipped semantics;
 # "biased" updates without the n/(n-1) factor; "off" does not update the
@@ -184,7 +186,13 @@ class BatchNorm(nn.Module):
     squared deviations, in float32, gathered in one differentiable
     all-reduce and combined, so the backward pass carries the cross-rank
     terms; the running variance takes the Bessel factor of the global
-    count. "eval" is per sample and stays local."""
+    count. "eval" is per sample and stays local.
+
+    Otherwise a "train" or "frozen" pass of a CUDA tensor runs on the
+    hand-written kernels of ``ops/batchnorm_kernels`` (one launch a
+    direction, NCHW or channels-last), and of a CPU tensor on
+    ``F.batch_norm``; "eval" and the live route keep their PyTorch ops on
+    both."""
 
     compute_dtype: Optional[torch.dtype] = None
 
@@ -271,6 +279,10 @@ class BatchNorm(nn.Module):
             if mesh.active() is not None:
                 return self._global_normalize(x, mode)
             if _BN_UPDATE_MODE is None:
+                if x.is_cuda:
+                    return batchnorm_kernels.batch_norm(x, self.weight, self.bias,
+                                                        self.running_mean, self.running_var,
+                                                        self.momentum, self.eps)
                 return F.batch_norm(x, self.running_mean, self.running_var, self.weight,
                                     self.bias, True, self.momentum, self.eps)
             with torch.no_grad():
@@ -280,6 +292,9 @@ class BatchNorm(nn.Module):
         if mode == "frozen":
             if mesh.active() is not None:
                 return self._global_normalize(x, mode)
+            if x.is_cuda:
+                return batchnorm_kernels.batch_norm(x, self.weight, self.bias, None, None, 0.0,
+                                                    self.eps)
             return F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0, self.eps)
         if mode == "eval":
             if self._live is not None:
