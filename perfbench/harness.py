@@ -9,7 +9,8 @@ generator. Set-up builds the solver and its state from the benchmark's
 weights, runs the first ``check_steps`` steps through that same feed and
 call with the benchmark's draws (``overrides``), records what the check
 compares, warms up ``warmup_steps`` more, and hands the same state to the
-window.
+window. After the window an untraced run profiles ``device_steps`` steps
+more for the device's busy time, and a traced run traces its stretches.
 """
 
 from __future__ import annotations
@@ -118,7 +119,7 @@ def count_flops(cell: Cell) -> float:
     ``meta`` tensors of the cell's shapes."""
     from torch.utils.flop_counter import FlopCounterMode
     exp = cell.experiment()
-    net = N.Net(cell.config["family"], exp["segmentation_model"]["num_classes"])
+    net = cell.net()
     crop = exp["data"]["crop_size"][0]
     specs = N.param_specs(net, crop)
     with FlopCounterMode(display=False) as counter:
@@ -133,7 +134,7 @@ def prepare(cell: Cell, seed: int, device, tf32: bool = False):
     ``tf32`` turns TF32 on for the checked steps (a control of the
     calibration: the program one precision below its configuration)."""
     exp = cell.experiment()
-    net = N.Net(cell.config["family"], exp["segmentation_model"]["num_classes"])
+    net = cell.net()
     specs = N.param_specs(net, exp["data"]["crop_size"][0])
     weights = inputs.make_weights(specs, seed, device)
     prog = Program(cell, seed, weights, device)
@@ -208,6 +209,8 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool, device, t0: flo
            "crop": exp["data"]["crop_size"][0]}
     run["window"] = window(prog, seconds, dev)
     run["setup_s"] = run["window"].pop("t_start") - t0
+    if not trace and torch.device(dev).type == "cuda":
+        run["device_stretch"] = device_stretch(prog, tr["device_steps"], dev)
     if trace:
         run["trace"] = traced_stretch(prog, tr["trace_steps"], dev)
         run["host_syncs"] = host_sync_stretch(prog, tr["sync_steps"], dev)
@@ -256,32 +259,60 @@ def window(prog: Program, seconds: float, dev) -> dict:
             "step_ms": step_ms, "loader_wait_s": wait, "peak_bytes": peak, "failed": failed}
 
 
+def device_stretch(prog: Program, steps: int, dev) -> dict:
+    """``steps`` steps just after the window under ``torch.profiler``
+    recording the device alone: the union of the intervals in which a
+    kernel, a copy or a fill ran on the card. The profiler slows the host's
+    side of a step, and a host that stands still leaves the card idle, not
+    busy, so the busy time is the step's work on the card whatever the
+    host's load."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from perfbench.trace import merge
+    sync(dev)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(steps):
+            prog.state, _ = prog.step(prog.state, prog.next_batch(), prog.generator)
+        sync(dev)
+    spans = [(e.start_ns(), e.start_ns() + e.duration_ns())
+             for e in prof.profiler.kineto_results.events()
+             if e.device_type() == torch.autograd.DeviceType.CUDA
+             and not e.is_user_annotation() and e.duration_ns() > 0]
+    busy_ns = sum(t - s for s, t in merge(spans))
+    return {"steps": steps, "busy_s": busy_ns * 1e-9, "events": len(spans)}
+
+
 def traced_stretch(prog: Program, steps: int, dev) -> dict:
     """``steps`` steps under ``torch.profiler``, after one profiled step
     that is not counted; reduced by ``trace.reduce_events`` over the span of
-    a marker range that ends after a synchronize."""
+    a marker range that ends after a synchronize, user annotations left
+    out, and under ``"spans"`` by ``spans.reduce_spans`` over the same
+    range with them (the program's phases)."""
     from torch.profiler import ProfilerActivity, profile, record_function
 
+    from perfbench.spans import MARKER, reduce_spans
     from perfbench.trace import reduce_events
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         prog.state, _ = prog.step(prog.state, prog.next_batch(), prog.generator)
         sync(dev)
         t_a = time.perf_counter()
-        with record_function("perfbench_stretch"):
+        with record_function(MARKER):
             for _ in range(steps):
                 prog.state, _ = prog.step(prog.state, prog.next_batch(), prog.generator)
             sync(dev)
         t_b = time.perf_counter()
     events = prof.events()
-    marker = [e for e in events if e.name == "perfbench_stretch"
+    marker = [e for e in events if e.name == MARKER
               and e.device_type == torch.autograd.DeviceType.CPU]
     lo, hi = (float(marker[0].time_range.start), float(marker[0].time_range.end)) \
         if marker else (-math.inf, math.inf)
-    inside = [e for e in events if e.name != "perfbench_stretch"
-              and not getattr(e, "is_user_annotation", False)
+    inside = [e for e in events if e.name != MARKER
               and float(e.time_range.start) >= lo and float(e.time_range.end) <= hi]
     window_s = (hi - lo) * 1e-6 if marker else t_b - t_a
-    return reduce_events(inside, window_s, steps)
+    out = reduce_events([e for e in inside if not getattr(e, "is_user_annotation", False)],
+                        window_s, steps)
+    out["spans"] = reduce_spans(inside, steps)
+    return out
 
 
 def host_sync_stretch(prog: Program, steps: int, dev) -> dict:

@@ -1,9 +1,10 @@
 """``BENCHMARK.json`` and the files it names, found by name.
 
 A cell ``<config>.<traffic>`` reads ``configs/<config>.json``,
-``traffic/<traffic>.json`` and ``limits/<cell>.json``; a metric ``<name>``
-is read by ``metrics/<name>.py``'s ``read(run)``. Adding a cell or a metric
-is adding files and an entry.
+``traffic/<traffic>.json`` and ``limits/<cell>.json``, and its network from
+``reference/families/<family>.py``, the family the configuration names; a
+metric ``<name>`` is read by ``metrics/<name>.py``'s ``read(run)``. Adding a
+cell, a network or a metric is adding files and an entry.
 """
 
 from __future__ import annotations
@@ -28,6 +29,7 @@ class Cell:
     limits: dict
     end_to_end: List[dict]
     per_layer: List[dict]
+    here: Path = HERE
 
     def experiment(self) -> dict:
         """The program's config: the configuration's blocks with the job's
@@ -49,6 +51,12 @@ class Cell:
             ms["eps"] = self.traffic["style_eps"]
             out["max_style"] = ms
         return out
+
+    def net(self):
+        """The reference's network of the configuration's ``"family"``."""
+        from perfbench.reference.nets import Net
+        return Net(self.config["family"],
+                   self.experiment()["segmentation_model"]["num_classes"], here=self.here)
 
 
 def load_manifest(root: Path = ROOT) -> dict:
@@ -76,7 +84,8 @@ def load_cell(name: str, manifest: Optional[dict] = None, here: Path = HERE) -> 
                 traffic=load_json(here / "traffic" / f"{w['traffic']}.json"),
                 limits=load_json(here / "limits" / f"{name}.json")["limits"],
                 end_to_end=[m for m in manifest["end_to_end"] if _applies(m, name)],
-                per_layer=[m for m in manifest["per_layer"] if _applies(m, name)])
+                per_layer=[m for m in manifest["per_layer"] if _applies(m, name)],
+                here=here)
 
 
 def reader(metric: str, here: Path = HERE) -> Callable[[dict], Optional[float]]:

@@ -1,0 +1,8 @@
+"""Device milliseconds a step of the training step's ``hard_pass`` phase: the
+union of the device intervals launched under the program's
+``maxstyle/hard_pass`` span and the spans inside it, over the traced
+stretch (``spans.reduce_spans``)."""
+
+from perfbench.spans import phase_reader
+
+read = phase_reader("hard_pass")

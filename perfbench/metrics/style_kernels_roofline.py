@@ -1,7 +1,8 @@
 """The MaxStyle kernels' (moments, apply, backward) summed bound time over
 their summed traced device time. Each kind's launches are spread evenly
 over the style hooks, as the inner loop runs them; a launch's bound is
-that of its hook's [batch, channels, side, side] activations."""
+that of its hook's [batch, channels, side, side] activations, the side the
+network family's (``nets.Net.hook_side``)."""
 
 from perfbench.roofline import KERNELS, STYLE_KERNELS, style_bound_s
 
@@ -12,9 +13,10 @@ def hook_shapes(run):
     if not ms:
         return []
     crop, b = run["crop"], run["slices_per_step"]
+    net = cell.net()
     out = []
     for h in ms["decoder_layers_indexes"]:
-        side = crop >> (4 - min(int(h), 4))
+        side = net.hook_side(crop, h)
         out.append((b, cell.config["style_hook_channels"][str(h)], side, side))
     return out
 

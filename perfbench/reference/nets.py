@@ -1,5 +1,5 @@
-"""The two networks of the benchmark in plain PyTorch, as functions of a
-flat parameter table.
+"""The benchmark's networks in plain PyTorch, as functions of a flat
+parameter table, and the layers they share.
 
 Nothing here imports the program. A network is written once, as a forward
 function over a :class:`Params` table keyed by the program's state-dict
@@ -8,16 +8,16 @@ names ("image_encoder.general_encoder.inc.conv1.weight", ...). Run on
 parameter and buffer with its shape and kind, which is how the benchmark
 makes the weights it hands to both sides.
 
-* FCN_16_standard_no_STN (Chen et al., MaxStyle, MICCAI 2022): a five-stage
-  residual encoder (16-32-64-128-128 channels), a code decoupler, a
-  nearest-neighbour segmentation decoder and a transposed-conv image
-  decoder with a sigmoid head.
-* UnetTransformer_16_no_STN: UNETR (Hatamizadeh et al., WACV 2022) over a
-  ViT-B/16 (hidden 768, 12 layers, 12 heads, MLP 3072, LayerNorm eps 1e-6,
-  exact GELU, fused qkv laid out head-major), its pyramid of skips from the
-  hidden states after blocks 4, 7 and 10 and the final tokens, the UNETR
-  decoder for the segmentation and the FCN image decoder over the bottom
-  level.
+A network family is a file ``reference/families/<family>.py``, which
+:class:`Net` loads by path as ``manifest.reader`` loads a metric; a
+configuration names it under ``"family"``. The file holds its own widths
+and defines ``encode(P, x) -> (z_i, z_s)``, ``segment(P, z_s,
+num_classes)`` (the logits) and ``decode_image(P, z_i, **kw)`` (the
+reconstruction, taking ``fcn_decode``'s ``style_fns``, ``start`` and
+``stop_before``). It may define ``hook_side(crop, hook)``, the side of the
+image decoder's activations at a style hook, where that is not the FCN
+decoder's ``crop >> (4 - min(hook, 4))``. Adding a network is adding its
+file.
 
 BatchNorm normalizes with the batch's statistics (biased variance, eps
 1e-5): in a training step every pass does ("train" and "frozen" differ
@@ -27,8 +27,9 @@ reads).
 
 from __future__ import annotations
 
-import math
-from typing import Callable, Dict, List, Optional
+import importlib.util
+from pathlib import Path
+from typing import Callable, Dict, Optional
 
 import torch
 import torch.nn.functional as F
@@ -36,6 +37,8 @@ import torch.nn.functional as F
 LRELU = 0.2
 BN_EPS = 1e-5
 LN_EPS = 1e-6
+
+HERE = Path(__file__).resolve().parents[1]
 
 StyleFns = Optional[Dict[int, Callable[[torch.Tensor], torch.Tensor]]]
 
@@ -118,36 +121,26 @@ def _style(x: torch.Tensor, style_fns: StyleFns, idx: int) -> torch.Tensor:
     return style_fns[idx](x) if style_fns is not None and idx in style_fns else x
 
 
-# ---------------------------------------------------------------------------
-# FCN_16 (feature_reduce 4)
-# ---------------------------------------------------------------------------
-
-ENC_CH = (16, 32, 64, 128, 128)
-LATENT = 128
-DEC_CH = (64, 32, 16, 16)
-
-
-def res_down(P, name, x, cout):
-    x = conv(P, f"{name}.down", x, x.shape[1], 3, stride=2)
+def res_block(P, name, x, cout):
     h = lrelu(batch_norm(P, f"{name}.norm1", conv(P, f"{name}.conv1", x, cout, 3)))
     h = batch_norm(P, f"{name}.norm2", conv(P, f"{name}.conv2", h, cout, 3))
-    return lrelu(conv(P, f"{name}.conv_input", x, cout, 1) + h)
+    skip = conv(P, f"{name}.skip", x, cout, 1) if x.shape[1] != cout else x
+    return lrelu(skip + h)
 
 
-def fcn_encode(P, x):
-    p = "image_encoder.general_encoder"
-    h = lrelu(batch_norm(P, f"{p}.inc.norm1", conv(P, f"{p}.inc.conv1", x, ENC_CH[0], 3)))
-    h = lrelu(batch_norm(P, f"{p}.inc.norm2", conv(P, f"{p}.inc.conv2", h, ENC_CH[0], 3)))
-    for i in range(1, 5):
-        h = res_down(P, f"{p}.down{i}", h, ENC_CH[i])
-    return torch.relu(batch_norm(P, f"{p}.final_norm", conv(P, f"{p}.final_conv", h, LATENT, 1)))
+def pr_up(P, name, x, cout, n_layer):
+    x = conv_t2(P, f"{name}.up0", x, cout)
+    for i in range(1, n_layer + 1):
+        x = res_block(P, f"{name}.conv{i}", conv_t2(P, f"{name}.up{i}", x, cout), cout)
+    return x
 
 
-def fcn_decouple(P, z):
-    p = "image_encoder.code_decoupler"
-    h = lrelu(batch_norm(P, f"{p}.norm1", conv(P, f"{p}.conv1", z, LATENT, 3, bias=False)))
-    return torch.relu(batch_norm(P, f"{p}.norm2", conv(P, f"{p}.conv2", h, LATENT, 3,
-                                                       bias=False)))
+# ---------------------------------------------------------------------------
+# the FCN decoder (feature_reduce 4): FCN_16's two decoders, every family's
+# image decoder
+# ---------------------------------------------------------------------------
+
+DEC_CH = (64, 32, 16, 16)
 
 
 def res_up(P, name, x, cout, learned_up):
@@ -181,108 +174,43 @@ def fcn_decode(P, name, x, out_ch, learned_up, sigmoid, style_fns: StyleFns = No
 
 
 # ---------------------------------------------------------------------------
-# UNETR over ViT-B/16 (feature size 16)
+# the network families, loaded by file
 # ---------------------------------------------------------------------------
 
-HIDDEN, MLP, LAYERS, HEADS, PATCH = 768, 3072, 12, 12, 16
-FEAT = 16
 
-
-def vit_block(P, q: str, t: torch.Tensor) -> torch.Tensor:
-    """One pre-norm block: t + attention(norm1(t)), then t + MLP(norm2(t))."""
-    b, n, _ = t.shape
-    d = HIDDEN // HEADS
-    qkv = linear(P, f"{q}.attn.qkv", layer_norm(P, f"{q}.norm1", t), 3 * HIDDEN, bias=False)
-    qkv = qkv.reshape(b, n, HEADS, 3, d)
-    qh, kh, vh = (qkv[:, :, :, j].transpose(1, 2) for j in range(3))
-    att = torch.softmax(qh @ kh.transpose(-1, -2) / math.sqrt(d), dim=-1)
-    out = (att @ vh).transpose(1, 2).reshape(b, n, HIDDEN)
-    t = t + linear(P, f"{q}.attn.out_proj", out, HIDDEN)
-    h = F.gelu(linear(P, f"{q}.linear1", layer_norm(P, f"{q}.norm2", t), MLP))
-    return t + linear(P, f"{q}.linear2", h, HIDDEN)
-
-
-def vit(P, x):
-    p = "image_encoder.vit"
-    n_tok = (x.shape[2] // PATCH) * (x.shape[3] // PATCH)
-    t = conv(P, f"{p}.patch_embed", x, HIDDEN, PATCH, stride=PATCH)
-    t = t.flatten(2).transpose(1, 2)
-    t = t + P.take(f"{p}.pos_embedding", (1, n_tok, HIDDEN), "pos")
-    hidden = []
-    for i in range(LAYERS):
-        t = vit_block(P, f"{p}.block{i}", t)
-        hidden.append(t)
-    return layer_norm(P, f"{p}.norm", t), hidden
-
-
-def res_block(P, name, x, cout):
-    h = lrelu(batch_norm(P, f"{name}.norm1", conv(P, f"{name}.conv1", x, cout, 3)))
-    h = batch_norm(P, f"{name}.norm2", conv(P, f"{name}.conv2", h, cout, 3))
-    skip = conv(P, f"{name}.skip", x, cout, 1) if x.shape[1] != cout else x
-    return lrelu(skip + h)
-
-
-def pr_up(P, name, x, cout, n_layer):
-    x = conv_t2(P, f"{name}.up0", x, cout)
-    for i in range(1, n_layer + 1):
-        x = res_block(P, f"{name}.conv{i}", conv_t2(P, f"{name}.up{i}", x, cout), cout)
-    return x
-
-
-def unetr_encode(P, x) -> List[torch.Tensor]:
-    final, hidden = vit(P, x)
-    g = x.shape[2] // PATCH
-
-    def grid(tokens):
-        return tokens.transpose(1, 2).reshape(tokens.shape[0], HIDDEN, g, g)
-
-    p = "image_encoder"
-    return [res_block(P, f"{p}.encoder1", x, FEAT),
-            pr_up(P, f"{p}.encoder2", grid(hidden[3]), 2 * FEAT, 2),
-            pr_up(P, f"{p}.encoder3", grid(hidden[6]), 4 * FEAT, 1),
-            pr_up(P, f"{p}.encoder4", grid(hidden[9]), 8 * FEAT, 0),
-            grid(final)]
-
-
-def unetr_decode(P, feats, out_ch):
-    enc1, enc2, enc3, enc4, x = feats
-    p = "segmentation_decoder"
-    for name, skip in (("decoder5", enc4), ("decoder4", enc3), ("decoder3", enc2),
-                       ("decoder2", enc1)):
-        up = conv_t2(P, f"{p}.{name}.up", x, skip.shape[1])
-        x = res_block(P, f"{p}.{name}.conv", torch.cat([up, skip], 1), skip.shape[1])
-    return conv(P, f"{p}.out", x, out_ch, 1)
-
-
-# ---------------------------------------------------------------------------
-# the network families as the solver uses them
-# ---------------------------------------------------------------------------
+def load_family(family: str, here: Path = HERE):
+    """The module of ``<here>/reference/families/<family>.py``."""
+    path = here / "reference" / "families" / f"{family}.py"
+    if not path.is_file():
+        raise ValueError(f"network family {family!r}: no file {path}")
+    spec = importlib.util.spec_from_file_location(f"perfbench_family_{family}", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
 
 
 class Net:
-    """One family: ``encode`` gives (z_i, z_s), ``segment`` the logits of
-    z_s, ``image_decoder`` the name of the FCN image decoder over z_i."""
+    """One family as the solver uses it: ``encode`` gives (z_i, z_s),
+    ``segment`` the logits of z_s, ``decode_image`` the image decoder over
+    z_i, ``hook_side`` the side of its activations at a style hook."""
 
-    def __init__(self, family: str, num_classes: int):
-        if family not in ("fcn16", "unetr"):
-            raise ValueError(f"network family {family!r}")
+    def __init__(self, family: str, num_classes: int, here: Path = HERE):
         self.family = family
         self.num_classes = num_classes
+        self.module = load_family(family, here)
 
     def encode(self, P, x):
-        if self.family == "fcn16":
-            z = fcn_encode(P, x)
-            return z, fcn_decouple(P, z)
-        pyramid = unetr_encode(P, x)
-        return pyramid[-1], pyramid
+        return self.module.encode(P, x)
 
     def segment(self, P, z_s):
-        if self.family == "fcn16":
-            return fcn_decode(P, "segmentation_decoder", z_s, self.num_classes, False, False)
-        return unetr_decode(P, z_s, self.num_classes)
+        return self.module.segment(P, z_s, self.num_classes)
 
     def decode_image(self, P, z_i, **kw):
-        return fcn_decode(P, "image_decoder", z_i, 1, True, True, **kw)
+        return self.module.decode_image(P, z_i, **kw)
+
+    def hook_side(self, crop: int, hook: int) -> int:
+        side = getattr(self.module, "hook_side", None)
+        return side(crop, hook) if side else crop >> (4 - min(int(hook), 4))
 
 
 def param_specs(net: Net, crop: int) -> Dict[str, tuple]:
@@ -294,7 +222,6 @@ def param_specs(net: Net, crop: int) -> Dict[str, tuple]:
     net.segment(P, z_s)
     net.decode_image(P, z_i)
     return P.specs
-
 
 
 def is_buffer(name: str) -> bool:

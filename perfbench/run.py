@@ -9,7 +9,8 @@ loss was not finite), ``metrics`` (the cell's end-to-end metrics with
 ``--trace 0``, its per-layer metrics with ``--trace 1``), ``device``, with
 ``--trace 1`` a ``breakdown`` of the traced stretch, and last ``checks``:
 each number the correctness check compared, with its limit. The same
-numbers are the last lines of standard error.
+numbers are the last lines of standard error; with ``--trace 1`` the
+table of the program's spans in the traced stretch comes before them.
 
 Exits with another code, and prints no result, without a CUDA device (or
 with fewer than the cell asks for), and when a module of JAX or of the
@@ -127,6 +128,9 @@ def main(argv=None) -> int:
     line = result(cell, run, bool(args.trace))
     line["device"]["card"] = card_limit()
     sys.stdout.flush()
+    if args.trace:
+        from perfbench.spans import span_table
+        print(span_table(run["trace"]["spans"]), file=sys.stderr)
     for name, c in line["checks"].items():
         print(f"check {name}: {c if name == 'error' else c['value']}"
               f"{'' if name == 'error' else ' limit ' + str(c['limit'])}", file=sys.stderr)

@@ -5,13 +5,14 @@ idle gaps put down to the spans of ``maxstyle_tpu_torch.utils.profiling.span``.
 
 builds the cell's program as a run of ``run.py`` does (set-up with the
 checked steps, then the warm-up), traces one stretch of ``--steps`` steps
-as ``harness.traced_stretch`` does (one profiled step not counted, then a
+with ``harness.traced_stretch`` (one profiled step not counted, then a
 marker range that ends after a synchronize), and prints the span table on
 standard error and one JSON line on standard output: the stretch's mean
 step on the profiler's clock, the device busy time and launches a step by
-``trace.reduce_events`` over the same events the harness reduces, the six
-phases' busy time and their sum. ``--out`` appends the line, with the
-whole reduction, to a file.
+``trace.reduce_events``, the six phases' busy time and their sum.
+``--out`` appends the line, with the whole reduction, to a file. A run of
+``run.py --trace 1`` keeps the same reduction of its own stretch, which the
+phase metrics read (``phase_reader``).
 
 One stretch a process, as a run traces: on the H100 with torch 2.11 a
 second profiler session in the same process lost device events (launches
@@ -36,7 +37,7 @@ from typing import Dict, List  # noqa: E402
 
 import torch  # noqa: E402
 
-from perfbench.trace import NOT_KERNELS, reduce_events  # noqa: E402
+from perfbench.trace import NOT_KERNELS  # noqa: E402
 
 SPAN_PREFIX = "maxstyle/"
 OUTSIDE = "(outside the program's spans)"
@@ -220,6 +221,17 @@ def phase_busy_ms(spans: dict, phase: str):
     return row["busy_ms"] if row and row["calls"] else None
 
 
+def phase_reader(phase: str):
+    """The ``read(run)`` of a phase metric: the phase's device busy ms a
+    step in the traced stretch of a ``--trace 1`` run, or None without
+    one."""
+
+    def read(run):
+        t = run.get("trace")
+        return phase_busy_ms(t["spans"], phase) if t and "spans" in t else None
+    return read
+
+
 def span_table(spans: dict) -> str:
     """``reduce_spans``' result as text: the phases, then every path."""
     head = (f"{'span':<58}{'calls':>7}{'host ms':>10}{'self ms':>10}{'busy ms':>10}"
@@ -234,43 +246,17 @@ def span_table(spans: dict) -> str:
                      + lines(spans["paths"]))
 
 
-def traced(prog, steps: int, dev) -> dict:
-    """One stretch traced as ``harness.traced_stretch`` traces it (which
-    returns only its reduction, not the events); returns
-    ``trace.reduce_events`` over the events it reduces (user annotations
-    left out) and ``reduce_spans`` over the same range with them."""
-    from torch.profiler import ProfilerActivity, profile, record_function
-
-    from perfbench.harness import sync
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        prog.state, _ = prog.step(prog.state, prog.next_batch(), prog.generator)
-        sync(dev)
-        with record_function(MARKER):
-            for _ in range(steps):
-                prog.state, _ = prog.step(prog.state, prog.next_batch(), prog.generator)
-            sync(dev)
-    events = prof.events()
-    marker = [e for e in events if e.name == MARKER
-              and e.device_type == torch.autograd.DeviceType.CPU]
-    lo, hi = _interval(marker[0])
-    inside = [e for e in events if e.name != MARKER
-              and float(e.time_range.start) >= lo and float(e.time_range.end) <= hi]
-    plain = [e for e in inside if not getattr(e, "is_user_annotation", False)]
-    return {"events": reduce_events(plain, (hi - lo) * 1e-6, steps),
-            "spans": reduce_spans(inside, steps)}
-
-
 def measure(cell, seed: int, steps: int, device) -> dict:
     """The cell's program set up as a run sets it up, then one traced
     stretch of ``steps`` steps."""
-    from perfbench.harness import free, prepare, sync
+    from perfbench.harness import free, prepare, sync, traced_stretch
     prog, _ = prepare(cell, seed, device)
     for _ in range(cell.traffic["warmup_steps"]):
         prog.state, _ = prog.step(prog.state, prog.next_batch(), prog.generator)
     sync(prog.device)
-    r = traced(prog, steps, prog.device)
+    ev = traced_stretch(prog, steps, prog.device)
     free(prog)
-    ev, sp = r["events"], r["spans"]
+    sp = ev["spans"]
     phases = {p: phase_busy_ms(sp, p) for p in PHASES}
     return {"workload": cell.name, "seed": seed, "steps": steps,
             "traced_step_ms": 1e3 * ev["window_s"] / steps, "busy_ms": 1e3 * ev["busy_s"] / steps,

@@ -31,7 +31,7 @@ def test_vit_block_flops_by_hand():
     P = N.Params()
     b, n, d, heads, mlp = 20, 144, 768, 12, 3072
     t = torch.empty((b, n, d), device="meta")
-    got = _flops(lambda: N.vit_block(P, "blk", t))
+    got = _flops(lambda: N.load_family("unetr").vit_block(P, "blk", t))
     hand = (2 * b * n * d * 3 * d            # qkv
             + 2 * b * heads * n * n * (d // heads) * 2  # scores and the weighted sum
             + 2 * b * n * d * d              # out_proj
@@ -115,6 +115,10 @@ def test_readers():
     assert reader("host_syncs_per_step")(run) == 1.5
     assert reader("device_idle_pct")(run) == pytest.approx(25.0)
     assert reader("step_mfu")(run) == pytest.approx(5.0)
+    assert reader("step_mfu.device")(run) == pytest.approx(100 * 67e10 * 2 / 0.3 / 67e12)
+    assert reader("slices_per_s.host_paced")(run) == pytest.approx(100.0)
+    assert reader("step_device_ms")(_run(device_stretch={"steps": 8, "busy_s": 0.96})) \
+        == pytest.approx(120.0)
     assert reader("peak_mem_gib")(run) == 2.0
     bound = sum(42 / 3 * style_bound_s("maxstyle_stats", *s)
                 + 30 / 3 * style_bound_s("maxstyle_bwd", *s) for s in HOOKS)
@@ -127,8 +131,51 @@ def test_readers_find_nothing_without_a_trace():
     from perfbench.manifest import reader
     run = _run()
     for name in ("launches_per_step", "host_syncs_per_step", "device_idle_pct",
-                 "style_kernels_roofline", "warp_roofline"):
+                 "style_kernels_roofline", "warp_roofline", "step_mfu.device",
+                 "step_device_ms"):
         assert reader(name)(run) is None
     std = _run(cell=standard_cell(),
                trace={"steps": 1, "window_s": 1.0, "busy_s": 0.5, "launches": 5, "by_name": {}})
     assert reader("style_kernels_roofline")(std) is None
+
+
+def test_the_device_stretch_counts_the_cards_busy_time_alone(monkeypatch):
+    """``harness.device_stretch`` runs its steps under a profiler of the
+    device alone and sums the union of the device's intervals: overlaps
+    once, the program's spans mirrored on the device and host events not
+    at all."""
+    from perfbench import harness
+
+    def kineto(name, start, end, cuda=True, annotation=False):
+        dt = torch.autograd.DeviceType.CUDA if cuda else torch.autograd.DeviceType.CPU
+        return types.SimpleNamespace(name=lambda: name, device_type=lambda: dt,
+                                     start_ns=lambda: start, duration_ns=lambda: end - start,
+                                     is_user_annotation=lambda: annotation)
+
+    events = [kineto("k1", 0, 10_000), kineto("k2", 5_000, 20_000),
+              kineto("Memcpy HtoD", 30_000, 40_000), kineto("k3", 60_000, 60_000),
+              kineto("maxstyle/step", 0, 90_000, annotation=True),
+              kineto("cudaLaunchKernel", 0, 90_000, cuda=False)]
+    seen = {}
+
+    class Profile:
+        def __init__(self, activities):
+            seen["activities"] = activities
+            self.profiler = types.SimpleNamespace(
+                kineto_results=types.SimpleNamespace(events=lambda: events))
+
+        def __enter__(self):
+            return self
+
+        def __exit__(self, *exc):
+            return False
+
+    steps = []
+    prog = types.SimpleNamespace(state=0, generator=None, next_batch=lambda: None,
+                                 step=lambda state, raw, gen: (steps.append(state) or state + 1,
+                                                               {}))
+    monkeypatch.setattr(torch.profiler, "profile", Profile)
+    out = harness.device_stretch(prog, 3, "cpu")
+    assert seen["activities"] == [torch.profiler.ProfilerActivity.CUDA]
+    assert steps == [0, 1, 2] and prog.state == 3
+    assert out == {"steps": 3, "busy_s": pytest.approx(30e-6), "events": 3}

@@ -38,9 +38,14 @@ def test_a_run_loads_no_jax():
 
 
 def test_the_reference_loads_nothing_of_the_program():
+    """The reference, every network family loaded by file and the
+    arithmetic beside them load nothing of the program and no JAX."""
+    families = sorted(p.stem for p in (ROOT / "perfbench" / "reference" / "families").glob("*.py"))
+    assert len(families) >= 2
     loaded = _loaded_after("import perfbench.reference.step, perfbench.reference.nets, "
                            "perfbench.reference.augment, perfbench.check, perfbench.inputs, "
-                           "perfbench.roofline")
+                           "perfbench.roofline\n"
+                           f"[perfbench.reference.nets.load_family(f) for f in {families!r}]")
     assert not loaded & (FORBIDDEN | {"maxstyle_tpu_torch"})
 
 

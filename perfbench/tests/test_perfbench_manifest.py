@@ -56,7 +56,9 @@ def test_every_cell_finds_its_files(bench):
         assert (ROOT / c["file"]).is_file()
         assert c["file"] == f"perfbench/configs/{c['name']}.json"
         with open(ROOT / c["file"]) as f:
-            assert json.load(f)["reduced"] == c["reduced"]
+            cfg = json.load(f)
+        assert cfg["reduced"] == c["reduced"]
+        assert (HERE / "reference" / "families" / f"{cfg['family']}.py").is_file()
     for w in bench["workloads"]:
         assert w["config"] in configs and w["chips"] == 1
         assert 1 <= len(w["why"]) <= 200
@@ -101,14 +103,68 @@ def test_configs_match_the_shipped_jobs(bench):
             assert (list(got) if isinstance(got, tuple) else got) == value, key
 
 
+# A network family of its own file: a stride-2 convolution encoder, a 1x1
+# segmentation head after nearest upsampling, and an image decoder whose
+# style hooks 1-5 sit at the full crop (its own hook_side).
+TOY_FAMILY = '''
+import torch
+
+from perfbench.reference.nets import batch_norm, conv, conv_t2, lrelu
+
+
+def encode(P, x):
+    z = lrelu(batch_norm(P, "image_encoder.norm", conv(P, "image_encoder.conv", x, 8, 3, stride=2)))
+    return z, z
+
+
+def segment(P, z_s, num_classes):
+    up = z_s.repeat_interleave(2, dim=2).repeat_interleave(2, dim=3)
+    return conv(P, "segmentation_decoder.head", up, num_classes, 1)
+
+
+def decode_image(P, z_i, style_fns=None, start=0, stop_before=None):
+    x = z_i
+    for i in range(start, 6):
+        if not (start > 0 and i == start):
+            if i == 1:
+                x = conv_t2(P, "image_decoder.up", x, 16)
+            elif 2 <= i <= 4:
+                x = lrelu(conv(P, f"image_decoder.conv{i}", x, 16, 3))
+            elif i == 5:
+                x = torch.sigmoid(conv(P, "image_decoder.head", x, 1, 1))
+        if stop_before is not None and i == stop_before:
+            return x
+        if style_fns and i in style_fns:
+            x = style_fns[i](x)
+    return x
+
+
+def hook_side(crop, hook):
+    return crop // 2 if hook == 0 else crop
+'''
+
+
+def _files(folder):
+    return {p.relative_to(folder): p.read_bytes() for p in sorted(folder.rglob("*"))
+            if p.is_file() and "__pycache__" not in p.parts}
+
+
 def test_a_cell_added_by_files_and_an_entry(tmp_path, bench):
     """A new configuration, traffic mix, limits file and metric reader,
     and one entry each in BENCHMARK.json: the harness finds and runs them
-    without an edit to any file it had."""
+    without an edit to any file it had. A new network is one file more:
+    a family under ``reference/families/`` gives its parameters, its FLOPs,
+    its style hooks' sides and a reference step."""
+    import torch
+
     from perfbench import harness
-    from perfbench.manifest import load_cell, read_metrics
+    from perfbench.manifest import load_cell, read_metrics, reader
+    from perfbench.reference import nets as N
+    from perfbench.roofline import style_bound_s
+    from perfbench_helpers import reference_run
     here = tmp_path / "perfbench"
     shutil.copytree(ROOT / "perfbench", here, ignore=shutil.ignore_patterns("__pycache__"))
+    had = _files(here)
     with open(here / "configs" / "fcn16_acdc.json") as f:
         cfg = json.load(f)
     cfg["name"] = "fcn16_small"
@@ -128,6 +184,8 @@ def test_a_cell_added_by_files_and_an_entry(tmp_path, bench):
     bench = json.loads(json.dumps(bench))
     bench["workloads"].append({"name": "fcn16_small.tiny_batch", "config": "fcn16_small",
                                "traffic": "tiny_batch", "chips": 1, "why": "test"})
+    rate = next(m for m in bench["end_to_end"] if m["name"] == "slices_per_s")
+    rate["workloads"].append("fcn16_small.tiny_batch")
     bench["per_layer"].append({"name": "steps_in_window", "unit": "steps", "better": "higher",
                                "source": "host_clock", "layer": "the loop",
                                "moves": "slices_per_s",
@@ -139,6 +197,46 @@ def test_a_cell_added_by_files_and_an_entry(tmp_path, bench):
     assert got["steps_in_window"]["value"] == run["window"]["steps"] >= 1
     assert set(read_metrics(cell.end_to_end, run, here)) == {m["name"] for m in cell.end_to_end}
     assert {"slices_per_s", "setup_s"} <= {m["name"] for m in cell.end_to_end}
+
+    (here / "reference" / "families" / "toy.py").write_text(TOY_FAMILY)
+    cfg["name"], cfg["family"] = "toy_small", "toy"
+    (here / "configs" / "toy_small.json").write_text(json.dumps(cfg))
+    with open(here / "traffic" / "maxstyle.json") as f:
+        tr = json.load(f)
+    tr["name"] = "tiny_maxstyle"
+    tr["experiment"]["learning"]["batch_size"] = 4
+    tr["experiment"]["max_style"]["n_iter"] = 1
+    tr["pool_slices"] = 12
+    (here / "traffic" / "tiny_maxstyle.json").write_text(json.dumps(tr))
+    (here / "limits" / "toy_small.tiny_maxstyle.json").write_text(
+        json.dumps({"limits": {"change_gap": 0.1}}))
+    bench["configs"].append({"name": "toy_small", "source": "test",
+                             "file": "perfbench/configs/toy_small.json", "reduced": [],
+                             "why": "test"})
+    bench["workloads"].append({"name": "toy_small.tiny_maxstyle", "config": "toy_small",
+                               "traffic": "tiny_maxstyle", "chips": 1, "why": "test"})
+    toy = load_cell("toy_small.tiny_maxstyle", bench, here=here)
+    net = toy.net()
+    assert net.module.__file__ == str(here / "reference" / "families" / "toy.py")
+    specs = N.param_specs(net, 32)
+    assert specs["image_encoder.conv.weight"] == ((8, 1, 3, 3), "conv")
+    assert specs["image_decoder.up.weight"] == ((8, 16, 2, 2), "conv_t")
+    assert specs["segmentation_decoder.head.weight"] == ((4, 8, 1, 1), "conv")
+    assert len(specs) == 18
+    assert harness.count_flops(toy) > 0
+    assert [net.hook_side(32, h) for h in (0, 3, 4, 5)] == [16, 32, 32, 32]
+    trace = {"steps": 1, "by_name": {"maxstyle_stats_kernel": [3, 1e-3]}}
+    roofline = reader("style_kernels_roofline", here)({"cell": toy, "crop": 32,
+                                                       "slices_per_step": 4, "trace": trace})
+    bound = sum(style_bound_s("maxstyle_stats", *s)
+                for s in ((4, 16, 32, 32), (4, 16, 32, 32), (4, 1, 32, 32)))
+    assert roofline == pytest.approx(100 * bound / 1e-3)
+    out = reference_run(toy, 5, 1)
+    assert torch.isfinite(torch.tensor(out["loss"])).all()
+    assert set(out["grad_norm"]) == {k for k in specs if not N.is_buffer(k)}
+    assert all(v > 0 for v in out["grad_norm"].values())
+    now = _files(here)
+    assert {k: now[k] for k in had} == had
 
 
 def test_tiny_cell_helper_cuts_only_sizes():

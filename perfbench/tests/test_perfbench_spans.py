@@ -137,8 +137,10 @@ def test_phase_busy_ms_reads_a_phase_or_nothing():
 
 def test_the_harness_reduction_is_the_same_with_the_programs_annotations(monkeypatch):
     """``harness.traced_stretch`` reduces the same events with and without
-    the program's spans on the host and their device-side copies."""
+    the program's spans on the host and their device-side copies, and keeps
+    the spans' own reduction of the stretch under ``"spans"``."""
     from perfbench import harness
+    from perfbench.spans import OUTSIDE
     plain = [e for e in _step_events() if not e.name.startswith("maxstyle/")]
     marked = _step_events()
     marker = _event("perfbench_stretch", -1, 101, annotation=True)
@@ -165,8 +167,12 @@ def test_the_harness_reduction_is_the_same_with_the_programs_annotations(monkeyp
     for events in (plain, marked):
         Profile.events_ = events + [marker]
         out.append(harness.traced_stretch(prog, 1, "cpu"))
+    spans = [r.pop("spans") for r in out]
     assert out[0] == out[1]
     assert out[0]["launches"] == 3 and out[0]["busy_s"] == pytest.approx(28e-6)
+    assert spans[1] == _reduce(marked)
+    assert spans[1]["phases"]["backward"]["busy_ms"] == pytest.approx(10e-3)
+    assert set(spans[0]["phases"]) == {OUTSIDE}
 
 
 def test_the_tiny_programs_spans_on_the_cpu():

@@ -24,6 +24,17 @@ def _span(e) -> Tuple[float, float]:
     return float(e.time_range.start), float(e.time_range.end)
 
 
+def merge(spans) -> List[List[float]]:
+    """The union of intervals (start, end), as sorted disjoint intervals."""
+    merged: List[List[float]] = []
+    for s, t in sorted(spans):
+        if merged and s <= merged[-1][1]:
+            merged[-1][1] = max(merged[-1][1], t)
+        else:
+            merged.append([s, t])
+    return merged
+
+
 def reduce_events(events, window_s: float, steps: int) -> dict:
     """{"steps", "window_s", "busy_s", "launches", "by_name": {name: [count,
     seconds]}, "device_ops", "idle_gaps"} of the events of one traced
@@ -47,13 +58,7 @@ def reduce_events(events, window_s: float, steps: int) -> dict:
         rec[1] += (t - s) * 1e-6
         if not e.name.startswith(NOT_KERNELS):
             launches += 1
-    spans.sort()
-    merged: List[List[float]] = []
-    for s, t in spans:
-        if merged and s <= merged[-1][1]:
-            merged[-1][1] = max(merged[-1][1], t)
-        else:
-            merged.append([s, t])
+    merged = merge(spans)
     busy_us = sum(t - s for s, t in merged)
     gaps = [(merged[i][1], merged[i + 1][0]) for i in range(len(merged) - 1)
             if merged[i + 1][0] > merged[i][1]]
