@@ -34,9 +34,9 @@ Phases, each printing its own lines; any failure exits nonzero:
              them); conv3x3_bn_stats at its bench's three shapes
              (timed) and at ragged shapes that reach every masked edge;
              and the BatchNorm pair (rows 7-8, batchnorm_fwd and
-             batchnorm_bwd) at both training cells' BatchNorm shapes and
+             batchnorm_bwd) at the training cells' BatchNorm shapes and
              the Prostate stem's, and channels-last at the shapes of
-             UNETR's image decoder: y, dx, dweight and dbias against a
+             UNETR's image decoder and Swin-UNETR's pyramid: y, dx, dweight and dbias against a
              float64 F.batch_norm (cuDNN's float32 error beside), the
              running statistics against F.batch_norm's, two runs bit for
              bit, y and dx in x's memory order, and the kernel's, the
@@ -132,10 +132,20 @@ Phases, each printing its own lines; any failure exits nonzero:
              every pyramid BatchNorm statistic moved, a non-zero hard-example
              loss, the device launches a step (torch.profiler, one more
              call), and the BatchNorm pair's launches equal to the run's
-             BatchNorm passes, as in phase 5. In each of phases 12-15 the
-             image decoder's hooks 3, 4, 5 see the headline's shapes
-             (20x16@96^2, 20x16@192^2, 20x1@192^2), at which phase 3 held
-             the kernels;
+             BatchNorm passes, as in phase 5;
+15b. slice_swin_unetr — the same config with SwinUNETR_16_no_STN:
+             Swin-UNETR 2-D (feature 48, depths 2-2-2-2, heads 3-6-12-24,
+             window 7) over the 192^2 crops with its six-level pyramid; the
+             image decoder is the FCN Decoder over the 1/16 level (384
+             channels). Exactly 21/21/15/1 launches a step, every Swin
+             trunk parameter tensor and every pyramid BatchNorm statistic
+             moved, a non-zero hard-example loss, every "train" BatchNorm
+             of a forward pass at a shape and memory order at which phase
+             3 held the BatchNorm pair, the device launches a step, and
+             the pair's launches equal to the run's BatchNorm passes, as
+             in phase 5. In each of phases 12-15b the image decoder's hooks
+             3, 4, 5 see the headline's shapes (20x16@96^2, 20x16@192^2,
+             20x1@192^2), at which phase 3 held the kernels;
 16. basic_solver — the baseline SegmentationModel with UNet_16, FCN_16 and
              ResUNet_16 (Adam 1e-4, EMA) at batch 20, 192^2, 4 classes, on
              synthetic slices made on the card: one warm-up step and 8 timed
@@ -194,7 +204,7 @@ Phases, each printing its own lines; any failure exits nonzero:
              step under the FLOP counter: exactly 21/21/15/1 launches a step in
              both, steps/s, slices/s and peak memory beside the headline's.
 
-The family phases 12-15 (four network families) print steps/s and peak
+The family phases 12-15b (five network families) print steps/s and peak
 memory beside the card's name and power limit. The tree of phases 9-11 and 19 is
 written once under build/ and deleted at the end. Each of the phases from 5 on is a path: every launch count is set to 0 just
 before it and read just after. Before the last line it prints one JSON object with
@@ -215,24 +225,28 @@ K_INNER = 4
 # steps/s and peak memory (GiB) of each training path, as phase_train measured them
 RATES = {}
 # the paths whose BatchNorm pair phase_train holds to the run's BatchNorm
-# passes (_count_batchnorm), the FCN and the UNETR step
-BN_COUNTED = ("slice", "slice_unetr")
+# passes (_count_batchnorm), the FCN, the UNETR and the Swin-UNETR step
+BN_COUNTED = ("slice", "slice_unetr", "slice_swin_unetr")
 KERNELS = ("maxstyle_stats", "maxstyle_apply", "maxstyle_bwd", "warp_bilinear_nearest",
            "warp_cubic_nearest", "conv3x3_bn_stats")
 # rows 7-8: every "train" and "frozen" BatchNorm of a CUDA tensor launches
 # one of each (a backward where its output's gradient is taken); a path's
 # counts are held to its BatchNorm calls, not to PER_STEP
 BN_KERNELS = ("batchnorm_fwd", "batchnorm_bwd")
-# their shapes: both training cells' BatchNorms (batch 20: 16 channels at
-# 192^2, 32 at 96^2, 64 at 48^2, 128 at 24^2 and at 12^2) and the Prostate
-# stem's 16 channels at 224^2; the layers' eps and momentum; the
-# tolerances of y (dx, dweight and dbias) against float64
+# their shapes: the FCN and UNETR cells' BatchNorms (batch 20: 16 channels
+# at 192^2, 32 at 96^2, 64 at 48^2, 128 at 24^2 and at 12^2), the Prostate
+# stem's 16 channels at 224^2 and Swin-UNETR's encoder1 and decoder1 (48 at
+# 192^2); the layers' eps and momentum; the tolerances of y (dx, dweight
+# and dbias) against float64
 BN_SHAPES = ((20, 16, 192, 192), (20, 32, 96, 96), (20, 64, 48, 48), (20, 128, 24, 24),
-             (20, 128, 12, 12), (20, 16, 224, 224))
-# and channels-last, the memory order of UNETR's image decoder (its four up
-# blocks at batch 20)
+             (20, 128, 12, 12), (20, 16, 224, 224), (20, 48, 192, 192))
+# and channels-last, the memory order of UNETR's and Swin-UNETR's image
+# decoder (its four up blocks at batch 20) and of Swin-UNETR's pyramid below
+# full resolution (48 channels at 96^2, 96 at 48^2, 192 at 24^2, 384 at 12^2,
+# 768 at 6^2: wide channels on small grids)
 BN_CHANNELS_LAST_SHAPES = ((20, 64, 24, 24), (20, 32, 48, 48), (20, 16, 96, 96),
-                           (20, 16, 192, 192))
+                           (20, 16, 192, 192), (20, 48, 96, 96), (20, 96, 48, 48),
+                           (20, 192, 24, 24), (20, 384, 12, 12), (20, 768, 6, 6))
 BN_EPS, BN_MOMENTUM = 1e-5, 0.1
 BN_TOL = {"batchnorm_fwd": 1e-5, "batchnorm_bwd": 1e-4}
 # launches per step of each training path; every other kernel launches 0 times
@@ -272,7 +286,8 @@ REFERENCE_IMPORT_CHANGES = {"learning": {"n_epochs": 1}}
 # the network families' paths: flagship workloads, the headline config with
 # another network_type
 FAMILY_PATHS = {"slice_stn": "headline_stn", "slice_ds_fcn": "headline_ds_fcn",
-                "slice_unet": "headline_unet", "slice_unetr": "headline_unetr"}
+                "slice_unet": "headline_unet", "slice_unetr": "headline_unetr",
+                "slice_swin_unetr": "headline_swin_unetr"}
 PER_STEP.update({path: PER_STEP["slice"] for path in FAMILY_PATHS})
 # the baseline zoo's path launches no port kernel
 PER_STEP["basic_solver"] = {}
@@ -1333,6 +1348,78 @@ def _check_unetr(solver, state, last):
           f"(torch.profiler, one call of {K_INNER} steps)")
 
 
+def _batchnorm_orders(solver, state):
+    """{(shape, memory order): passes} of every "train" BatchNorm in one
+    forward pass of the segmentation and image paths at the config's batch
+    and crop; the order "channels_last" where x is channels-last and not
+    NCHW-contiguous, else "nchw"."""
+    import collections
+
+    import torch
+    from maxstyle_tpu_torch.models.layers import BatchNorm
+
+    cfg = solver.config
+    n, (h, w) = cfg.learning.batch_size, cfg.crop_hw
+    seen = collections.Counter()
+
+    def record(module, args, kwargs, out):
+        x = args[0]
+        last = not x.is_contiguous() and x.is_contiguous(memory_format=torch.channels_last)
+        seen[(tuple(x.shape), "channels_last" if last else "nchw")] += 1
+
+    handles = [m.register_forward_hook(record, with_kwargs=True)
+               for m in state.modules.modules() if isinstance(m, BatchNorm)]
+    try:
+        with torch.no_grad():
+            z_i, z_s = solver.encode_image(state.modules, torch.rand((n, 1, h, w), device="cuda"),
+                                           mode="train")
+            solver.decode(state.modules, "segmentation_decoder", z_s, mode="train")
+            solver.decode(state.modules, "image_decoder", z_i, mode="train")
+    finally:
+        for hd in handles:
+            hd.remove()
+    return dict(seen)
+
+
+def _check_swin_unetr(solver, state, last):
+    """The encoder is Swin-UNETR's; every Swin trunk parameter tensor and
+    every BatchNorm running statistic of its pyramid moved from the initial
+    state (measure_throughput starts from seed 0); every "train" BatchNorm
+    of a forward pass runs at a shape and memory order of BN_SHAPES (NCHW)
+    or BN_CHANNELS_LAST_SHAPES, where phase 3 held the pair against float64;
+    then the device launches a step."""
+    import torch
+    from maxstyle_tpu_torch.models.swin_unetr import SwinUNETREncoder
+
+    enc = state.modules["image_encoder"]
+    if not isinstance(enc, SwinUNETREncoder):
+        fail("slice_swin_unetr: the image encoder is not a SwinUNETREncoder")
+        return
+    if not last["loss/hard/total"] > 0:
+        fail("slice_swin_unetr: the hard-example loss is 0")
+    init = solver.init_state(0).modules["image_encoder"].state_dict()
+    sd = enc.state_dict()
+    trunk = [k for k in sd if k.startswith("swinViT.")]
+    stats = [k for k in sd if k.startswith("encoder") and ".running_" in k]
+    moved_trunk = sum(not torch.equal(sd[k], init[k]) for k in trunk)
+    moved_stats = sum(not torch.equal(sd[k], init[k]) for k in stats)
+    print(f"slice_swin_unetr: Swin trunk {sum(sd[k].numel() for k in trunk)} parameters in "
+          f"{len(trunk)} tensors, {moved_trunk} moved; pyramid BatchNorm statistics "
+          f"{moved_stats}/{len(stats)} moved")
+    if moved_trunk != len(trunk) or moved_stats != len(stats) or not stats:
+        fail("slice_swin_unetr: a trunk parameter or a pyramid BatchNorm statistic did not move")
+    orders = _batchnorm_orders(solver, state)
+    held = ({(s, "nchw") for s in BN_SHAPES}
+            | {(s, "channels_last") for s in BN_CHANNELS_LAST_SHAPES})
+    print(f"slice_swin_unetr: BatchNorm passes of a forward by shape and memory order "
+          f"{json.dumps({f'{list(s)} {o}': c for (s, o), c in sorted(orders.items())})}")
+    if not orders or set(orders) - held:
+        fail(f"slice_swin_unetr: BatchNorm shapes the kernels phase did not hold: "
+             f"{sorted(set(orders) - held)}")
+    print(f"slice_swin_unetr: device launches {_device_launches_per_step(solver, state):.1f}"
+          f"/step (torch.profiler, one call of {K_INNER} steps)")
+
+
 def _check_family(path, solver, state, last):
     """The MaxStyle hooks of the path's image decoder see the headline's
     shapes, at which the kernels phase checked and timed kernels 1-3; then
@@ -1355,11 +1442,13 @@ def _check_family(path, solver, state, last):
     if shapes != STYLE_SHAPES["headline"]:
         fail(f"{path}: hook shapes {shapes}, not the headline's {STYLE_SHAPES['headline']}")
     {"slice_stn": _check_stn, "slice_ds_fcn": _check_ds,
-     "slice_unet": _check_unet, "slice_unetr": _check_unetr}[path](solver, state, last)
+     "slice_unet": _check_unet, "slice_unetr": _check_unetr,
+     "slice_swin_unetr": _check_swin_unetr}[path](solver, state, last)
 
 
 def phase_families(smi: str):
-    """Phases 12-15: the STN, DS_FCN, Unet and UNETR paths at full width."""
+    """Phases 12-15b: the STN, DS_FCN, Unet, UNETR and Swin-UNETR paths at
+    full width."""
     from maxstyle_tpu_torch.flagship import WORKLOADS
 
     import functools

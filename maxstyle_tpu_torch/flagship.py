@@ -27,8 +27,9 @@ Counterpart of ``__graft_entry__._flagship_solver`` and
   (FCN_16_standard), ``headline_ds_fcn`` (DS_FCN_16_standard),
   ``headline_unet`` (Unet_16_Unet_im_recon_no_STN), ``headline_unetr``
   (UnetTransformer_16_no_STN: a ViT-B/16 at hidden 768, 12 layers, over the
-  192^2 crops); and the headline's file with one learning option changed:
-  ``headline_bf16`` (``compute_dtype="bfloat16"``: bf16 activations,
+  192^2 crops), ``headline_swin_unetr`` (SwinUNETR_16_no_STN: feature 48,
+  depths 2-2-2-2, window 7, over the 192^2 crops); and the headline's file
+  with one learning option changed: ``headline_bf16`` (``compute_dtype="bfloat16"``: bf16 activations,
   float32 weights, optimizer state, BatchNorm statistics and losses),
   ``headline_unetr_bf16`` (``headline_unetr`` so) and ``headline_ngf``
   (``rec_loss_type="ngf"``, the normalized-gradient-field reconstruction
@@ -196,7 +197,8 @@ def family_solver(network_type: str = "FCN_16_standard_no_STN", device=None,
 # the network families on the headline's config
 FAMILIES = {"headline_stn": "FCN_16_standard", "headline_ds_fcn": "DS_FCN_16_standard",
             "headline_unet": "Unet_16_Unet_im_recon_no_STN",
-            "headline_unetr": "UnetTransformer_16_no_STN"}
+            "headline_unetr": "UnetTransformer_16_no_STN",
+            "headline_swin_unetr": "SwinUNETR_16_no_STN"}
 # the method-branch configs and the standard training they are compared with
 BRANCH_CONFIGS = {
     "prostate_standard": CONFIGS / "Prostate" / "standard_training.json",

@@ -9,11 +9,17 @@ reference solver's ``get_network``
       [_z_score|_identity]
   DS_FCN_16_standard                      (dual-domain BN)
   Unet… / UnetTransformer…
+  SwinUNETR_16_no_STN                     (the port's own family)
 
 ``16`` -> feature_reduce 4, ``64`` -> feature_reduce 1. :func:`build_modules`
 builds every bundle of the grammar: the FCN family (with or without the
 STN, DS_FCN's domain-specific encoder), the Unet family and UNETR
-(``models/unet.py``, ``models/unetr.py``).
+(``models/unet.py``, ``models/unetr.py``), and Swin-UNETR
+(``models/swin_unetr.py``), which the JAX package does not have. A
+``SwinUNETR`` type is recognised by its prefix, not by the "16" it holds:
+its Swin widths are fixed by the name, "16" gives the FCN image decoder its
+feature_reduce 4, and only the ``_no_STN`` form without code filters is
+built (the others raise ``NotImplementedError``).
 """
 
 from __future__ import annotations
@@ -50,9 +56,34 @@ class NetworkSpec:
     def latent_ch(self) -> int:
         return 512 // self.feature_reduce
 
+    @property
+    def is_swin_unetr(self) -> bool:
+        """A Swin-UNETR type. A property of the name and not a field, so that
+        the fields stay the JAX package's spec's."""
+        return self.network_type.startswith(SWIN_UNETR_PREFIX)
+
+
+SWIN_UNETR_PREFIX = "SwinUNETR"
+# the parts of the grammar a Swin-UNETR type may not hold
+_SWIN_UNSUPPORTED = ("enable_code_filter", "share_code", "w_o_filter", "Unet_im_recon")
+
+
+def _check_swin_unetr(nt: str) -> None:
+    if not nt.startswith(SWIN_UNETR_PREFIX + "_16"):
+        raise NotImplementedError(f"{nt}: the SwinUNETR family is built as "
+                                  f"SwinUNETR_16_no_STN (feature_reduce 4) only")
+    if "no_STN" not in nt:
+        raise NotImplementedError(f"{nt}: the SwinUNETR family has no STN variant; "
+                                  "use SwinUNETR_16_no_STN")
+    bad = [part for part in _SWIN_UNSUPPORTED if part in nt]
+    if bad:
+        raise NotImplementedError(f"{nt}: the SwinUNETR family has no {bad[0]} variant")
+
 
 def parse_network_type(network_type: str, intensity_norm_type: str = "min_max") -> NetworkSpec:
     nt = network_type
+    if nt.startswith(SWIN_UNETR_PREFIX):
+        _check_swin_unetr(nt)
     if "16" in nt:
         reduce = 4
     elif "64" in nt:
@@ -117,13 +148,22 @@ def build_modules(spec: NetworkSpec, image_ch: int = 1, num_classes: int = 4,
                   ) -> nn.ModuleDict:
     """The module bundle {image_encoder, segmentation_decoder,
     [image_decoder], [shape_encoder, shape_decoder]} of a spec;
-    ``image_size`` is the side of the square crops UNETR's ViT is built for.
+    ``image_size`` is the side of the square crops UNETR's ViT and the Swin
+    trunk's masks are built for.
     ``dtype`` is every module's compute dtype (``layers.set_compute_dtype``;
     None computes in float32); parameters and running statistics stay
     float32."""
     r = spec.feature_reduce
     latent = 512 // r
-    if spec.is_unet:
+    if spec.is_swin_unetr:
+        from maxstyle_tpu_torch.models.swin_unetr import build_swin_unetr_modules
+        if encoder_dropout:
+            raise NotImplementedError(f"{spec.network_type}: the Swin trunk runs MONAI's "
+                                      "drop rates of 0; encoder_dropout is not built")
+        modules = build_swin_unetr_modules(spec, image_ch=image_ch, num_classes=num_classes,
+                                           decoder_dropout=decoder_dropout,
+                                           image_size=image_size)
+    elif spec.is_unet:
         from maxstyle_tpu_torch.models.unet import build_unet_modules
         modules = build_unet_modules(spec, image_ch=image_ch, num_classes=num_classes,
                                      encoder_dropout=encoder_dropout,

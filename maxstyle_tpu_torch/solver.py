@@ -23,6 +23,8 @@ statistics are trained, in the hard-example pass) and the Unet family and
 UNETR, whose codes are skip pyramids: lists of five tensors, or the bottom
 one of them as ``z_i`` unless the image decoder is a ``UnetDecoder``
 (``Unet_im_recon``). UNETR's ViT is built for the config's square crop.
+Swin-UNETR's pyramid has six levels; its ``z_i`` is the 1/16 one, and its
+trunk's masks are built for the config's square crop.
 """
 
 from __future__ import annotations
@@ -94,6 +96,8 @@ class ForwardAux:
 
 # the softmax temperature of the STN's input logits (advanced_triplet…:87)
 STN_TEMPERATURE = 2.0
+# the level of Swin-UNETR's pyramid that its FCN image decoder takes (1/16)
+SWIN_IMAGE_LEVEL = 4
 
 
 def _detach(code):
@@ -219,7 +223,11 @@ class TripletSegmentationSolver:
     def _route_codes(self, z, z_s):
         """(z, filtered) -> (z_i, z_s) per the network_type routing. A
         Unet's z_i is the bottom of the pyramid unless its image decoder
-        takes the whole pyramid (``Unet_im_recon``)."""
+        takes the whole pyramid (``Unet_im_recon``); Swin-UNETR's is the
+        pyramid's 1/16 level (``SWIN_IMAGE_LEVEL``), its z_s the whole
+        pyramid."""
+        if self.spec.is_swin_unetr:
+            return z[SWIN_IMAGE_LEVEL], z_s
         if self.spec.is_unet:
             z_i = z if "Unet_im_recon" in self.spec.network_type else z[-1]
             return z_i, z_s
@@ -235,6 +243,8 @@ class TripletSegmentationSolver:
             return self.filter_code(nets, z, mode=mode)
 
     def filter_code(self, nets, z, *, mode: str):
+        if self.spec.is_swin_unetr:
+            return self._route_codes(z, z)
         if self.spec.is_unet:
             z_s = (nets["image_encoder"].filter_code(z, mode) if self.spec.unet_code_filter
                    else z)

@@ -31,7 +31,8 @@ anything else raises, and the caller loads the result with ``strict=True``,
 so nothing is skipped on either side. A whole reference UNETR module is
 refused with ``ValueError``: the JAX package has no importer for one either
 (its ``convert_module_state_dict`` sends a UNETR encoder to the Unet
-encoder's converter, which cannot read it).
+encoder's converter, which cannot read it). A Swin-UNETR module is refused
+too: the reference has no such network.
 """
 
 from __future__ import annotations
@@ -326,8 +327,12 @@ def convert_module_state_dict(sd: Mapping[str, torch.Tensor], module_name: str,
     """One module's reference state dict -> the port module's state dict,
     by the module's name and the network's spec (a Unet's encoder and
     decoders, and the image decoder of ``Unet_im_recon`` types, are the
-    UNet's). A UNETR network's modules raise ``ValueError``."""
+    UNet's). A UNETR or Swin-UNETR network's modules raise ``ValueError``."""
     is_unet = spec is not None and getattr(spec, "is_unet", False)
+    if spec is not None and getattr(spec, "is_swin_unetr", False):
+        raise ValueError(
+            f"{module_name!r} of {spec.network_type}: the reference has no Swin-UNETR "
+            "network, so there is no .pth checkpoint of it to import")
     if spec is not None and getattr(spec, "is_transformer", False):
         raise ValueError(
             f"{module_name!r} of {spec.network_type}: the JAX package has no importer for a "
