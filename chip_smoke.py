@@ -41,7 +41,14 @@ Phases, each printing its own lines; any failure exits nonzero:
              running statistics against F.batch_norm's, two runs bit for
              bit, y and dx in x's memory order, and the kernel's, the
              plain version's and cuDNN's times beside the bound of 8 (12)
-             bytes a value;
+             bytes a value; and the float32 linear layer's GEMM (rows
+             9-10: linear_fwd, linear_dx, linear_dw with db) at every
+             Linear shape of the UNETR and Swin-UNETR steps: each product
+             against float64 with cuBLAS's float32 error beside (at most
+             twice it), timed beside cuBLAS (F.linear, mm and sum; the
+             products slower than it listed), the ViT's forwards at 40% or
+             more of the bound (3 TF32 products at 495 TFLOP/s against the
+             bytes at 3.35 TB/s);
 4. reference — on a small input, the MaxStyle generation through the
              kernels against the plain autograd op, and the stylized and
              predicted outputs finite and of the expected shape;
@@ -145,7 +152,13 @@ Phases, each printing its own lines; any failure exits nonzero:
              the pair's launches equal to the run's BatchNorm passes, as
              in phase 5. In each of phases 12-15b the image decoder's hooks
              3, 4, 5 see the headline's shapes (20x16@96^2, 20x16@192^2,
-             20x1@192^2), at which phase 3 held the kernels;
+             20x1@192^2), at which phase 3 held the kernels. In 15 and
+             15b the linear kernel's launches (forward, dx, dW) equal the
+             float32 Linear calls and backwards as hooks count them, dW
+             twice a Linear module a step (the standard and hard passes
+             under the optimizer's backward; none in the inner loop), and
+             every Linear runs at a shape of phase 3's rows 9-10; on every
+             other path it launches 0 times;
 16. basic_solver — the baseline SegmentationModel with UNet_16, FCN_16 and
              ResUNet_16 (Adam 1e-4, EMA) at batch 20, 192^2, 4 classes, on
              synthetic slices made on the card: one warm-up step and 8 timed
@@ -248,6 +261,28 @@ BN_CHANNELS_LAST_SHAPES = ((20, 64, 24, 24), (20, 32, 48, 48), (20, 16, 96, 96),
                            (20, 16, 192, 192), (20, 48, 96, 96), (20, 96, 48, 48),
                            (20, 192, 24, 24), (20, 384, 12, 12), (20, 768, 6, 6))
 BN_EPS, BN_MOMENTUM = 1e-5, 0.1
+# rows 9-10: the float32 linear layer's three products on one GEMM kernel;
+# on the paths of LINEAR_COUNTED (the UNETR and Swin-UNETR steps) a path's
+# launches are held to its Linear calls as hooks count them (_count_linear),
+# on every other path to 0
+LINEAR_KERNELS = ("linear_fwd", "linear_dx", "linear_dw")
+LINEAR_COUNTED = ("slice_unetr", "slice_swin_unetr")
+# every Linear shape (tokens, in, out, bias) of those steps at batch 20:
+# ViT-B/16's qkv, out_proj, linear1, linear2; Swin-UNETR's window attention
+# (padded windows), MLPs and mergings, stage by stage. _count_linear fails a
+# step that runs another
+LINEAR_SHAPES = ((2880, 768, 2304, False), (2880, 768, 768, True), (2880, 768, 3072, True),
+                 (2880, 3072, 768, True),
+                 (192080, 48, 144, True), (192080, 48, 48, True), (184320, 48, 192, True),
+                 (184320, 192, 48, True), (46080, 192, 96, False), (48020, 96, 288, True),
+                 (48020, 96, 96, True), (46080, 96, 384, True), (46080, 384, 96, True),
+                 (11520, 384, 192, False), (15680, 192, 576, True), (15680, 192, 192, True),
+                 (11520, 192, 768, True), (11520, 768, 192, True), (2880, 768, 384, False),
+                 (3920, 384, 1152, True), (3920, 384, 384, True), (2880, 384, 1536, True),
+                 (2880, 1536, 384, True), (720, 1536, 768, False))
+# the ViT's products, whose forwards must reach this share of their bound
+LINEAR_VIT_SHAPES = LINEAR_SHAPES[:4]
+LINEAR_MIN_ROOFLINE = 0.40
 BN_TOL = {"batchnorm_fwd": 1e-5, "batchnorm_bwd": 1e-4}
 # launches per step of each training path; every other kernel launches 0 times
 PER_STEP = {
@@ -302,7 +337,8 @@ BASIC_STEPS = 8
 LAUNCH_PATH = {"maxstyle_stats": "slice", "maxstyle_apply": "slice", "maxstyle_bwd": "slice",
                "warp_bilinear_nearest": "slice", "warp_cubic_nearest": "slice_prostate_cubic",
                "conv3x3_bn_stats": "conv_bn_fusion", "batchnorm_fwd": "slice",
-               "batchnorm_bwd": "slice"}
+               "batchnorm_bwd": "slice", "linear_fwd": "slice_unetr", "linear_dx": "slice_unetr",
+               "linear_dw": "slice_unetr"}
 # stats and bwd are also checked at ragged shapes: hw % 4 != 0, hw = 1, a
 # plane that is not a whole number of float4 steps, and two that split over
 # a cluster with a short last rank (on 132 SMs: 130^2 into 8 ranks of 2116
@@ -355,6 +391,14 @@ SOURCES = {
                       "none: F.batch_norm (cuDNN's bn_fw_tr_1C11_kernel_NCHW)"),
     "batchnorm_bwd": ("maxstyle_tpu_torch/csrc/batchnorm.cu",
                       "none: F.batch_norm's backward (cuDNN's bn_bw_1C11_kernel_new)"),
+    "linear_fwd": ("maxstyle_tpu_torch/csrc/linear.cu",
+                   "none: F.linear (cuBLAS's float32 sgemm; the JAX package's Dense is an XLA "
+                   "dot)"),
+    "linear_dx": ("maxstyle_tpu_torch/csrc/linear.cu",
+                  "none: F.linear's input gradient (cuBLAS's float32 sgemm)"),
+    "linear_dw": ("maxstyle_tpu_torch/csrc/linear.cu",
+                  "none: F.linear's weight and bias gradients (cuBLAS's float32 sgemm and a "
+                  "sum)"),
 }
 
 
@@ -392,7 +436,12 @@ def _ptxas_report(log: str):
             name = (f"Cfg<{', '.join(cfg.groups())}>" if cfg else
                     re.sub(r"^_Z\d+", "", kern.group(1)) if kern else ln.split("'")[1][:40])
             vec = re.search(r"_kernelI(6float4|f)E", ln)
-            if targs and not cfg:
+            width = re.search(r"linear_gemm_kernelILi(\d+)EE", ln)
+            if width:
+                name = f"linear_gemm_kernel<{width.group(1)}>"
+            elif "linear_transpose_kernel" in ln:
+                name = "linear_transpose_kernel"
+            elif targs and not cfg:
                 name += f"<{targs.group(1)}, {targs.group(2)}>"
             elif vec:
                 name += "<float4>" if vec.group(1) == "6float4" else "<float>"
@@ -1030,11 +1079,90 @@ def _bn_rows(rows):
     return ok
 
 
+def _linear_rows(rows):
+    """Rows 9-10, the float32 linear layer's GEMM (ops/linear_kernels) at
+    LINEAR_SHAPES, each of its products: y = x W^T + b, dx = dy W, and dW =
+    dy^T x with db (where the layer has a bias) in one launch. Each against
+    a float64 product relative to its largest value, with cuBLAS's float32
+    error beside (F.linear, mm and sum; TF32 off), at most twice it; the
+    kernel's, the plain version's (the same library calls) and cuBLAS's
+    times beside the bound, the larger of the bytes at 3.35 TB/s and three
+    TF32 products at 495 TFLOP/s, and the ViT's forwards at
+    LINEAR_MIN_ROOFLINE of the bound or more. The products slower than
+    cuBLAS are listed, not failed."""
+    import torch
+    import torch.nn.functional as F
+    from maxstyle_tpu_torch.ops import linear_kernels as LK
+    from maxstyle_tpu_torch.timing import TF32_OPS_PER_S, bound_by, bound_ms, copies_beyond_l2
+    from maxstyle_tpu_torch.timing import cuda_ms
+
+    if torch.backends.cuda.matmul.allow_tf32:
+        fail("linear rows: cuBLAS's yardstick must run in float32 (allow_tf32 is on)")
+    ok = True
+    slower = []
+    for i, (m, k, n, has_bias) in enumerate(LINEAR_SHAPES):
+        g = torch.Generator(device="cuda").manual_seed(90 + i)
+        copies = copies_beyond_l2(4 * (m * k + m * n))
+        xs = [torch.randn((m, k), generator=g, device="cuda") for _ in range(copies)]
+        dys = [torch.randn((m, n), generator=g, device="cuda") for _ in range(copies)]
+        w = torch.randn((n, k), generator=g, device="cuda") / k ** 0.5
+        b = 0.1 * torch.randn(n, generator=g, device="cuda") if has_bias else None
+        x, dy = xs[0], dys[0]
+        x64, w64, dy64 = x.double(), w.double(), dy.double()
+
+        products = {
+            "linear_fwd": (lambda j: (LK.linear_fwd(xs[j], w, b),),
+                           lambda j: (LK.linear_fwd_plain(xs[j], w, b),),
+                           lambda j: (F.linear(xs[j], w, b),),
+                           (x64 @ w64.T + (b.double() if has_bias else 0.0),),
+                           4 * (m * k + n * k + m * n + n * has_bias)),
+            "linear_dx": (lambda j: (LK.linear_dx(dys[j], w),),
+                          lambda j: (LK.linear_dx_plain(dys[j], w),),
+                          lambda j: (dys[j].mm(w),), (dy64 @ w64,), 4 * (m * n + n * k + m * k)),
+            "linear_dw": (lambda j: LK.linear_dw(dys[j], xs[j], has_bias),
+                          lambda j: LK.linear_dw_plain(dys[j], xs[j], has_bias),
+                          lambda j: (dys[j].t().mm(xs[j]), dys[j].sum(0) if has_bias else None),
+                          (dy64.T @ x64, dy64.sum(0) if has_bias else None),
+                          4 * (m * n + m * k + n * k + n * has_bias)),
+        }
+        cell = "unetr" if (m, k, n, has_bias) in LINEAR_VIT_SHAPES else "swin_unetr"
+        for name, (kern, plain, lib, ref, nbytes) in products.items():
+            got, want, lib_out = kern(0), plain(0), lib(0)
+            pairs = [(u, v, r) for u, v, r in zip(got, lib_out, ref) if r is not None]
+            err = max(_rel(u, r) for u, _, r in pairs)
+            lib_err = max(_rel(v, r) for _, v, r in pairs)
+            plain_diff = max(float((u - v).abs().max()) for u, v in zip(got, want)
+                             if u is not None)
+            ms, plain_ms, library_ms = (cuda_ms(fn, copies) for fn in (kern, plain, lib))
+            ops = 3 * 2 * m * n * k
+            bound = bound_ms(nbytes, ops, TF32_OPS_PER_S)
+            roofline = bound / ms
+            row = dict(cell=cell, shape=[m, k, n], bias=has_bias, max_abs_err=plain_diff,
+                       rel_err=err, tol=2 * lib_err, library_err=lib_err, ms=ms,
+                       plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound,
+                       bound_by=bound_by(nbytes, ops, TF32_OPS_PER_S), roofline=roofline)
+            rows[name]["shapes"].append(row)
+            floor = LINEAR_MIN_ROOFLINE if name == "linear_fwd" and cell == "unetr" else 0.0
+            good = err <= 2 * lib_err and roofline >= floor
+            if ms > library_ms:
+                slower.append(f"{name} [{m}, {k}] -> {n}")
+            print(f"kernel {name} {cell} [{m}, {k}] -> {n}{' +b' if has_bias else ''}: err vs "
+                  f"float64 {err:.3e} (cuBLAS {lib_err:.3e}); {1e3 * ms:.2f} us, cuBLAS "
+                  f"{1e3 * library_ms:.2f} us{' (slower)' if ms > library_ms else ''}, "
+                  f"{100 * roofline:.1f}% of the bound {1e3 * bound:.2f} us "
+                  f"({row['bound_by']}){'' if good else ' FAILED'}")
+            ok &= good
+        del xs, dys
+    print(f"linear rows: slower than cuBLAS at {len(slower)} of {3 * len(LINEAR_SHAPES)} "
+          f"products: {slower}")
+    return ok
+
+
 def phase_kernels():
     """Each kernel vs its plain version at every main-path shape."""
     rows = {name: {"name": name, "route": "cuda", "source": SOURCES[name][0],
                    "replaces": SOURCES[name][1], "shapes": []}
-            for name in KERNELS + BN_KERNELS}
+            for name in KERNELS + BN_KERNELS + LINEAR_KERNELS}
     from maxstyle_tpu_torch.config import MaxStyleConfig
     from maxstyle_tpu_torch.bench_style import STYLE_SHAPES, launch_floor_ms
     eps = MaxStyleConfig().eps
@@ -1054,6 +1182,7 @@ def phase_kernels():
     ok &= _warp_rows(rows)
     ok &= _conv_rows(rows)
     ok &= _bn_rows(rows)
+    ok &= _linear_rows(rows)
     for row in rows.values():
         for s in row["shapes"]:
             extra = "".join(f" {k} {s[k]:.5f}" for k in
@@ -1145,12 +1274,16 @@ def phase_train(path: str, solver, smi: str, desc: str, rounds: int = 3,
     torch.cuda.reset_peak_memory_stats()
     kernels.reset_launches()
     bn_calls, uncount = _count_batchnorm(solver) if path in BN_COUNTED else (None, None)
+    linear_calls, unheld, unlinear = (_count_linear(solver) if path in LINEAR_COUNTED
+                                      else (None, None, None))
     t0 = time.perf_counter()
     try:
         rate, state, metrics = measure_throughput(solver, k_inner=K_INNER, n_calls=2,
                                                   n_repeats=rounds)
         torch.cuda.synchronize()
     finally:
+        if unlinear is not None:
+            unlinear()
         if uncount is not None:
             uncount()
     launches = dict(kernels.LAUNCHES)
@@ -1184,9 +1317,100 @@ def phase_train(path: str, solver, smi: str, desc: str, rounds: int = 3,
             fail(f"{path}: the BatchNorm kernels launched {[launches[k] for k in BN_KERNELS]} "
                  f"times over {steps} steps of {[bn_calls[k] for k in BN_KERNELS]} BatchNorm "
                  f"passes")
+    if linear_calls is None:
+        if any(launches[k] for k in LINEAR_KERNELS):
+            fail(f"{path}: the linear kernel launched {[launches[k] for k in LINEAR_KERNELS]} "
+                 f"times on a path without a float32 Linear")
+    else:
+        modules = linear_calls.pop("modules")
+        print(f"{path}: float32 Linear calls over {steps} steps {json.dumps(linear_calls)} "
+              f"({', '.join(f'{k} {v / steps:g}' for k, v in linear_calls.items())} a step; "
+              f"{modules} Linear modules)")
+        if not linear_calls["linear_fwd"] \
+                or any(launches[k] != linear_calls[k] for k in LINEAR_KERNELS):
+            fail(f"{path}: the linear kernel launched {[launches[k] for k in LINEAR_KERNELS]} "
+                 f"times (forward, dx, dW) over {steps} steps of "
+                 f"{[linear_calls[k] for k in LINEAR_KERNELS]} Linear calls")
+        # the optimizer's backward covers the standard and the hard pass:
+        # every Linear twice a step, and no dW in the inner loop
+        if linear_calls["linear_dw"] != 2 * modules * steps:
+            fail(f"{path}: {linear_calls['linear_dw']} dW products over {steps} steps, "
+                 f"expected {2 * modules} a step")
+        if unheld:
+            fail(f"{path}: Linear shapes the kernels phase did not hold: {sorted(unheld)}")
     if check is not None:
         check(state, last)
     return launches
+
+
+def _count_linear(solver):
+    """Count, on every module tree ``solver.init_state`` builds from now on,
+    each layers.Linear call that runs on the port's GEMM (a forward hook;
+    its (tokens, in, out, bias) recorded where LINEAR_SHAPES lacks it) and,
+    on its output's autograd node, each backward in which the autograd
+    engine uses the input's gradient (dx) and the weight's (dW). Returns (the
+    counts by kernel name, with "modules": the Linear modules of the tree;
+    the shapes not held; a function that removes the hooks)."""
+    import weakref
+
+    import torch
+    from maxstyle_tpu_torch.models import layers
+
+    calls = dict.fromkeys(LINEAR_KERNELS, 0)
+    calls["modules"] = 0
+    unheld = set()
+    handles = []
+
+    def used(edge):
+        if edge is None:
+            return False
+        try:
+            return torch._C._will_engine_execute_node(edge)
+        except RuntimeError:   # a leaf under autograd.grad: its gradient is computed
+            return True
+
+    def backward_ran(node):
+        node = weakref.ref(node)   # a strong one would keep the graph alive
+
+        def hook(grad_outputs):
+            calls["linear_dx"] += used(node().next_functions[0][0])
+            calls["linear_dw"] += used(node().next_functions[1][0])
+        return hook
+
+    def forward_ran(module, args, out):
+        x = args[0]
+        if not layers.kernel_route(layers._cast_dtype(module, x), x.device):
+            return
+        calls["linear_fwd"] += 1
+        shape = (x.numel() // x.shape[-1], module.in_features, module.out_features,
+                 module.bias is not None)
+        if shape not in LINEAR_SHAPES:
+            unheld.add(shape)
+        if out.grad_fn is not None:
+            out.grad_fn.register_prehook(backward_ran(out.grad_fn))
+
+    # chain to another count's wrapper where one is installed (the BatchNorm
+    # pair's, on the paths that count both); uncount before that one's
+    wrapped = vars(solver).get("init_state")
+    build = solver.init_state
+
+    def init_state(*args, **kwargs):
+        state = build(*args, **kwargs)
+        linear = [m for m in state.modules.modules() if isinstance(m, layers.Linear)]
+        calls["modules"] = len(linear)
+        handles.extend(m.register_forward_hook(forward_ran) for m in linear)
+        return state
+
+    def uncount():
+        if wrapped is None:
+            del solver.init_state
+        else:
+            solver.init_state = wrapped
+        for h in handles:
+            h.remove()
+
+    solver.init_state = init_state
+    return calls, unheld, uncount
 
 
 def _count_batchnorm(solver):

@@ -3,9 +3,10 @@
 The sources live in ``maxstyle_tpu_torch/csrc/``: ``maxstyle.cu`` (the
 MaxStyle moments, style map and backward; ``ops/maxstyle_kernels``),
 ``warp.cu`` and ``warp_cubic.cu`` (the augmentation warps;
-``ops/warp_kernels``), ``conv_bn_stats.cu`` (``proto_conv_bn_fusion``) and
+``ops/warp_kernels``), ``conv_bn_stats.cu`` (``proto_conv_bn_fusion``),
 ``batchnorm.cu`` (BatchNorm's "train" and "frozen" forward and backward;
-``ops/batchnorm_kernels``). Each ``.cu`` file is
+``ops/batchnorm_kernels``) and ``linear.cu`` (the float32 linear layer's
+products; ``ops/linear_kernels``). Each ``.cu`` file is
 compiled by ``nvcc`` for ``sm_90a`` into its own shared library with a plain
 C interface, loaded with ``ctypes``. Builds go to ``build/kernels/`` at the
 root of the checkout, named by a hash of the source, so an edited source is
@@ -16,10 +17,12 @@ source, all started together.
 
 ``LAUNCHES`` counts the launches of each kernel: ``maxstyle_stats``,
 ``maxstyle_apply``, ``maxstyle_bwd``, ``warp_bilinear_nearest``,
-``warp_cubic_nearest``, ``conv3x3_bn_stats``, ``batchnorm_fwd`` and
-``batchnorm_bwd``. A wrapper adds one right after its kernel was launched
-and nowhere else, so a run can show that its main path went through the
-kernels.
+``warp_cubic_nearest``, ``conv3x3_bn_stats``, ``batchnorm_fwd``,
+``batchnorm_bwd``, ``linear_fwd``, ``linear_dx`` and ``linear_dw`` (the
+three products of ``linear_gemm``; the copy ``linear_transpose`` that dx or
+dW may launch before it is not counted). A wrapper adds one right after its
+kernel was launched and nowhere else, so a run can show that its main path
+went through the kernels.
 """
 
 from __future__ import annotations
@@ -43,6 +46,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_L = ctypes.c_longlong
 # C signature of every entry point: (source, function, argtypes)
 _SIGNATURES = {
     "ms_moments": ("maxstyle", (_P, _P, _P, _I, _I, _I, _I, _F, _P)),
@@ -60,13 +64,16 @@ _SIGNATURES = {
     "bn_fwd_rows": ("batchnorm", (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _P)),
     "bn_bwd_rows": ("batchnorm", (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P)),
     "bn_rows_max_blocks": ("batchnorm", (_P,)),
+    "linear_gemm": ("linear", (_P, _P)),   # its arguments packed in one int64 array
+    "linear_transpose": ("linear", (_P, _P, _I, _I, _L, _P)),
 }
 SOURCES = tuple(sorted({src for src, _ in _SIGNATURES.values()}))
 
 LAUNCHES: Dict[str, int] = {name: 0 for name in
                             ("maxstyle_stats", "maxstyle_apply", "maxstyle_bwd",
                              "warp_bilinear_nearest", "warp_cubic_nearest",
-                             "conv3x3_bn_stats", "batchnorm_fwd", "batchnorm_bwd")}
+                             "conv3x3_bn_stats", "batchnorm_fwd", "batchnorm_bwd",
+                             "linear_fwd", "linear_dx", "linear_dw")}
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 BUILD_LOG: Dict[str, str] = {}
@@ -145,6 +152,14 @@ def launch(fn: str, *args) -> None:
     rc = getattr(_lib(source), fn)(*c_args, stream)
     if rc != 0:
         raise RuntimeError(f"CUDA kernel {fn} failed to launch: cudaError {rc}")
+
+
+def entry(fn: str):
+    """C entry point ``fn``, built and loaded on first use, to call with
+    plain values: tensors by data pointer, the stream last; it returns the
+    CUDA error code. For a wrapper on the step's critical path, where
+    :func:`launch`'s conversions cost host time."""
+    return getattr(_lib(_SIGNATURES[fn][0]), fn)
 
 
 def query(fn: str, *args) -> None:

@@ -38,7 +38,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from maxstyle_tpu_torch.ops import batchnorm_kernels
+from maxstyle_tpu_torch.ops import batchnorm_kernels, linear_kernels
 from maxstyle_tpu_torch.parallel import mesh
 
 LRELU_SLOPE = 0.2
@@ -109,13 +109,26 @@ class ConvTranspose2d(nn.ConvTranspose2d):
                                   self.groups, self.dilation)
 
 
+def kernel_route(dtype: torch.dtype, device: torch.device) -> bool:
+    """Whether a linear map computed in ``dtype`` on ``device`` runs on the
+    port's GEMM (float32 on CUDA) rather than ``F.linear``."""
+    return dtype is torch.float32 and device.type == "cuda"
+
+
 class Linear(nn.Linear):
-    """nn.Linear that casts like :class:`Conv2d` (flax's Dense)."""
+    """nn.Linear that casts like :class:`Conv2d` (flax's Dense).
+
+    Route by dtype and device: a float32 product of a CUDA tensor runs on the
+    split-TF32 GEMM of ``ops/linear_kernels`` (forward, dx, dW and db);
+    every other product (a CPU tensor, a bf16, fp16 or float64 compute
+    dtype) is ``F.linear``."""
 
     compute_dtype: Optional[torch.dtype] = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = _cast_dtype(self, x)
+        if kernel_route(dt, x.device):
+            return linear_kernels.linear(x.to(dt), self.weight.to(dt), _cast(self.bias, dt))
         return F.linear(x.to(dt), self.weight.to(dt), _cast(self.bias, dt))
 
 

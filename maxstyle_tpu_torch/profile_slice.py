@@ -55,7 +55,7 @@ from maxstyle_tpu_torch.train_step import make_multi_step
 # symbol fragments of the port's kernels in the profiler's kernel names
 PORT_KERNELS = {name: f"{name}_kernel" for name in
                 ("maxstyle_stats", "maxstyle_apply", "maxstyle_bwd", "warp_bilinear_nearest",
-                 "warp_cubic_nearest")}
+                 "warp_cubic_nearest", "linear_gemm")}
 
 
 def _device_us(evt) -> float:
